@@ -1,0 +1,1 @@
+"""datasets (PyTorch port; see object_slam_tpu_torch/__init__.py)."""

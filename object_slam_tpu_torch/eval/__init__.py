@@ -1,0 +1,1 @@
+"""eval (PyTorch port; see object_slam_tpu_torch/__init__.py)."""
