@@ -4,15 +4,21 @@
 
 Phases, each fatal on failure:
   1. environment: the card's name and power limit, torch/CUDA versions;
-     build the port's CUDA kernel from csrc/ and print the build time;
+     build the port's CUDA kernels from csrc/ (one nvcc each, all started
+     together) and print the build time;
   2. every kernel against its plain PyTorch version on the card, at the
      shapes the main path gives it (a rendered 640x480 TUM frame, all 8
-     pyramid levels at their keypoint budgets, ~10% of the corners past
-     the borders): bit-exact check, CUDA-event times (median of 100 after
-     warm-up), and the bound for the same work;
+     pyramid levels at their keypoint budgets, 1024 keypoints, ~10% of the
+     corners past the borders), with the tolerance stated at each check,
+     CUDA-event times of the wrapper call (median of 100 after warm-up),
+     the kernel's device time (torch.profiler), and the bound for the
+     same work: extract_patches (one frame's 16 per-level launches, off the
+     main path since orb_describe took its place) and orb_describe (one
+     launch for the frame);
   3. the slice: SlamSystem.track_rgbd on 40 rendered TUM-VGA frames
      (objects off, strict readback) on the card, with every kernel's
-     launch count read around that run;
+     launch count set to 0 before that run and read after it:
+     orb_describe once per frame, extract_patches never;
   4. one JSON line of the kernels, the card line, and the last line
      {"ok": true, "device": {...}}.
 
@@ -29,8 +35,11 @@ import time
 
 import numpy as np
 
-# H100 SXM peak memory rate (NVIDIA data sheet), for the bound column
+# H100 SXM peak rates (NVIDIA data sheet), for the bound column
 HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+F64_FLOP_PER_S = 34e12
+KERNELS = ("patch_extract", "orb_describe")
 N_FRAMES = 40
 WARMUP = 8
 
@@ -68,6 +77,26 @@ def cuda_time_ms(fn, reps: int = 100, warmup: int = 10) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Device time of the CUDA kernels whose name holds `kernel`, per call
+    of fn(), summed over their launches, from torch.profiler's trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.name]
+    if not spans:
+        fail(f"the profiler traced no {kernel} on the card")
+    return sum(spans) / reps / 1e3
+
+
 def tum_cfg():
     from object_slam_tpu_torch.config import SlamConfig, TrackingConfig
     return SlamConfig.tum_rgbd().replace(
@@ -89,19 +118,19 @@ def render(cfg, n_frames):
     return poses, frames
 
 
-def phase_kernels(cfg, gray):
-    """extract_patches against its plain version at the main path's
-    shapes: 2 launches per pyramid level (raw and blurred level)."""
+def main_path_inputs(cfg, gray):
+    """The pyramid of a rendered frame and, per level, as many window
+    corners as its keypoint budget, ~10% of them past the borders."""
     import torch
     from object_slam_tpu_torch.features import pyramid as pyr
     from object_slam_tpu_torch.features.extractor import OrbExtractor
-    from object_slam_tpu_torch.ops import patch as patch_mod
 
     ex = OrbExtractor(cfg, device="cuda")
     img = torch.from_numpy(gray).cuda()
-    levels = pyr.build_pyramid(img, cfg.orb.n_levels, cfg.orb.scale_factor)
+    levels = [x.contiguous() for x in
+              pyr.build_pyramid(img, cfg.orb.n_levels, cfg.orb.scale_factor)]
     rng = np.random.RandomState(0)
-    calls = []
+    corners = []
     for l, lvl in enumerate(levels):
         n = ex.budgets[l]
         if n <= 0:
@@ -116,9 +145,21 @@ def phase_kernels(cfg, gray):
         xs[out] = np.where(rng.rand(out.sum()) < 0.5,
                            rng.randint(-40, 0, out.sum()),
                            rng.randint(W - 31, W + 40, out.sum()))
-        ys_t = torch.from_numpy(ys.astype(np.int32)).cuda()
-        xs_t = torch.from_numpy(xs.astype(np.int32)).cuda()
-        for im in (lvl.contiguous(), pyr.gaussian_blur(lvl).contiguous()):
+        corners.append((l, torch.from_numpy(ys.astype(np.int32)).cuda(),
+                        torch.from_numpy(xs.astype(np.int32)).cuda()))
+    return ex, levels, corners
+
+
+def phase_patches(levels, corners):
+    """extract_patches against its plain version at the main path's
+    shapes: one frame's 2 launches per pyramid level (raw and blurred)."""
+    import torch
+    from object_slam_tpu_torch.features import pyramid as pyr
+    from object_slam_tpu_torch.ops import patch as patch_mod
+
+    calls = []
+    for l, ys_t, xs_t in corners:
+        for im in (levels[l], pyr.gaussian_blur(levels[l]).contiguous()):
             calls.append((im, ys_t, xs_t))
 
     max_err = 0.0
@@ -153,6 +194,7 @@ def phase_kernels(cfg, gray):
             im[yy, xx]
 
     ms = cuda_time_ms(run_kernel)
+    dev_ms = device_ms(run_kernel, "patch_extract_kernel")
     plain_ms = cuda_time_ms(run_plain)
     library_ms = cuda_time_ms(run_library)
     # bound: every output byte written once, every input byte the windows
@@ -171,26 +213,129 @@ def phase_kernels(cfg, gray):
     bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     n_patches = sum(c[1].shape[0] for c in calls)
     print(f"extract_patches: {len(calls)} launches, {n_patches} patches per "
-          f"frame; kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+          f"frame; kernel {ms * 1e3:.1f} us ({dev_ms * 1e3:.2f} us on the "
+          f"device), plain {plain_ms * 1e3:.1f} us, "
           f"gather {library_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us "
           f"({n_bytes / 2 ** 20:.1f} MiB); bit-exact", flush=True)
     return {"name": "extract_patches", "route": "cuda",
             "source": "object_slam_tpu_torch/csrc/patch_extract.cu",
             "replaces": "object_slam_tpu/ops/patch_pallas.py:74",
             "launches": 0, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes", "library_ms": library_ms}
+
+
+def phase_describe(ex, levels, corners):
+    """orb_describe against its plain version at the main path's shapes:
+    one launch for the frame's keypoints over all levels.
+
+    Tolerance: angles within 1e-5 rad (mod 2 pi) except where the plain
+    version's stability margin |mag - tau * mass| is below 1e-4 tau mass
+    (counted and printed); descriptors bit-exact wherever the two angles
+    fall in the same bin; bins equal for >= 99.9% of keypoints. The kernel
+    sums the moments in another order than torch, and the bin rounding
+    and the gate see that; the blur and bf16 rounding are bit-exact."""
+    import torch
+    from object_slam_tpu_torch.ops import describe as dsc
+
+    lv = [levels[l] for l, _, _ in corners]
+    cy = torch.cat([ys for _, ys, _ in corners])
+    cx = torch.cat([xs for _, _, xs in corners])
+    lvl = torch.cat([torch.full_like(ys, i)
+                     for i, (_, ys, _) in enumerate(corners)])
+    args = (lv, cy, cx, lvl, ex.brief_idx1, ex.brief_idx2)
+    radius = ex.cfg.orb.half_patch
+    k_ang, k_desc = dsc.orb_describe_cuda(*args, radius=radius)
+    p_ang, p_desc = dsc.orb_describe_ref(*args, radius=radius)
+    near = dsc.near_gate(lv, cy, cx, lvl, radius=radius)
+    torch.cuda.synchronize()
+
+    def bins(a):
+        return torch.remainder(torch.round(
+            a / (2.0 * math.pi) * dsc.N_ANGLE_BINS).to(torch.int64),
+            dsc.N_ANGLE_BINS)
+
+    err = (torch.remainder(k_ang.double() - p_ang.double() + math.pi,
+                           2 * math.pi) - math.pi).abs()
+    max_err = float(err[~near].max()) if bool((~near).any()) else 0.0
+    n_near = int(near.sum())
+    n_near_diff = int((near & (err > 1e-5)).sum())
+    same = bins(k_ang) == bins(p_ang)
+    same_frac = float(same.double().mean())
+    bad_bits = int(torch.sum(k_desc[same] != p_desc[same]))
+    n = cy.shape[0]
+
+    ms = cuda_time_ms(lambda: dsc.orb_describe_cuda(*args, radius=radius))
+    dev_ms = device_ms(lambda: dsc.orb_describe_cuda(*args, radius=radius),
+                       "orb_describe_kernel")
+    plain_ms = cuda_time_ms(lambda: dsc.orb_describe_ref(*args,
+                                                         radius=radius))
+    # bound: the raw pixels the 38x38 wrapped windows touch (the union per
+    # level), the BRIEF table rows of the bins in use (two int16 tables),
+    # the corner and level arrays read once, angle and descriptor written
+    # once; operations: the blur's multiply and add per tap (38x32 and
+    # 32x32 outputs), the BRIEF compares (f32), the masked moments (f64)
+    n_bytes = 0
+    r = torch.arange(32 + 6, device="cuda")
+    for l, ys, xs in corners:
+        H, W = levels[l].shape
+        y0 = ys.long().clamp(0, H - 32)
+        x0 = xs.long().clamp(0, W - 32)
+        rows = torch.remainder(y0[:, None] - 3 + r, H)
+        cols = torch.remainder(x0[:, None] - 3 + r, W)
+        touched = torch.zeros((H, W), dtype=torch.bool, device="cuda")
+        touched[rows[:, :, None], cols[:, None, :]] = True
+        n_bytes += int(touched.sum()) * 4
+    n_bytes += int(torch.unique(bins(k_ang)).numel()) * 2 * 256 * 2
+    n_bytes += n * 3 * 4 + n * (4 + 8 * 4)
+    d = np.arange(32) - 15
+    n_circ = int(np.sum(d[:, None] ** 2 + d[None, :] ** 2 <= radius ** 2))
+    f32_ops = n * ((38 * 32 + 32 * 32) * 7 * 2 + 256)
+    f64_ops = n * n_circ * 5
+    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    op_ms = (f32_ops / F32_FLOP_PER_S + f64_ops / F64_FLOP_PER_S) * 1e3
+    bound_ms = max(byte_ms, op_ms)
+    print(f"orb_describe: 1 launch, {n} keypoints over {len(lv)} levels; "
+          f"kernel {ms * 1e3:.1f} us ({dev_ms * 1e3:.2f} us on the device), "
+          f"plain {plain_ms * 1e3:.1f} us, bound "
+          f"{bound_ms * 1e3:.3f} us ({n_bytes / 2 ** 20:.2f} MiB, "
+          f"{byte_ms * 1e3:.3f} us; {(f32_ops + f64_ops) / 1e6:.1f} MFLOP, "
+          f"{op_ms * 1e3:.3f} us); max angle error {max_err:.3e} rad outside "
+          f"{n_near} near-gate keypoints ({n_near_diff} of them differ); "
+          f"bins agree {same_frac:.6f}; {bad_bits} descriptor words differ "
+          f"where bins agree", flush=True)
+    if not max_err <= 1e-5:
+        fail(f"orb_describe angle error {max_err} rad > 1e-5")
+    if same_frac < 0.999:
+        fail(f"orb_describe bins agree for only {same_frac:.6f}")
+    if bad_bits:
+        fail(f"orb_describe: {bad_bits} descriptor words differ from the "
+             f"plain version where the bins agree")
+    if not (torch.isfinite(k_ang).all() and k_desc.shape == (n, 8)):
+        fail("orb_describe output is not finite or has the wrong shape")
+    return {"name": "orb_describe", "route": "cuda",
+            "source": "object_slam_tpu_torch/csrc/orb_describe.cu",
+            "replaces": "object_slam_tpu/ops/patch_pallas.py:74",
+            "launches": 0, "max_abs_err": max_err, "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes the blur, the "
+                       "IC angle and steered BRIEF of a window"}
 
 
 def phase_slice(cfg, poses, frames, card):
     import torch
     from object_slam_tpu_torch.eval.ate import ate_rmse
+    from object_slam_tpu_torch.ops import describe as dsc
     from object_slam_tpu_torch.ops import patch as patch_mod
     from object_slam_tpu_torch.slam.system import SlamSystem
 
     sys_ = SlamSystem(cfg, enable_objects=False, device="cuda", profile=True)
-    n_lvl = sum(1 for b in sys_.builder.extractor.budgets if b > 0)
-    patch_mod.extract_patches.launches = 0
+    counters = {"extract_patches": patch_mod.extract_patches,
+                "orb_describe": dsc.orb_describe}
+    for fn in counters.values():
+        fn.launches = 0
     times, est, gt, oks = [], [], [], []
     for i, (T, (gray, depth, rgb)) in enumerate(zip(poses, frames)):
         torch.cuda.synchronize()
@@ -203,7 +348,7 @@ def phase_slice(cfg, poses, frames, card):
         est.append(np.linalg.inv(Tcw)[:3, 3])
         gt.append(np.linalg.inv(T)[:3, 3])
         oks.append(bool(f.pose_ok))
-    launches = patch_mod.extract_patches.launches
+    launches = {name: fn.launches for name, fn in counters.items()}
     ate = ate_rmse(np.array(est), np.array(gt))
     steady = np.asarray(times[WARMUP:])
     n_kf, n_pts = sys_.n_keyframes, sys_.n_points
@@ -227,9 +372,9 @@ def phase_slice(cfg, poses, frames, card):
         fail(f"{sys_.n_reloc_skipped} frames needed relocalization")
     if not ate < 0.05:
         fail(f"ATE {ate} m >= 0.05 m")
-    want = 2 * n_lvl * N_FRAMES
+    want = {"extract_patches": 0, "orb_describe": N_FRAMES}
     if launches != want:
-        fail(f"extract_patches launched {launches} times, expected {want}")
+        fail(f"main-path kernel launches {launches}, expected {want}")
     return launches
 
 
@@ -251,8 +396,8 @@ def main():
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}",
           flush=True)
     t0 = time.perf_counter()
-    build.load("patch_extract")
-    print(f"kernel patch_extract built and loaded in "
+    build.load_all(KERNELS)
+    print(f"kernels {', '.join(KERNELS)} built and loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     cfg = tum_cfg()
@@ -261,13 +406,19 @@ def main():
     print(f"rendered {N_FRAMES} frames in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    row = phase_kernels(cfg, frames[0][0])
-    row["launches"] = phase_slice(cfg, poses, frames, card)
-    row["launches_per_frame"] = row["launches"] // N_FRAMES
-    for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
-        if not (isinstance(row[k], float) and math.isfinite(row[k])):
-            fail(f"kernel row field {k} is not a finite number")
-    print(json.dumps({"kernels": [row]}), flush=True)
+    ex, levels, corners = main_path_inputs(cfg, frames[0][0])
+    rows = [phase_patches(levels, corners),
+            phase_describe(ex, levels, corners)]
+    launches = phase_slice(cfg, poses, frames, card)
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+        row["launches_per_frame"] = row["launches"] // N_FRAMES
+        timed = ("ms", "device_ms", "plain_ms", "bound_ms") + \
+            (("library_ms",) if row["library_ms"] is not None else ())
+        for k in timed:
+            if not (isinstance(row[k], float) and math.isfinite(row[k])):
+                fail(f"{row['name']} row field {k} is not a finite number")
+    print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,11 @@ descriptors.
 Descriptors are ``int32[N, 8]`` holding the same bits as the reference's
 ``uint32[N, 8]`` (torch's uint32 has no bitwise or shift ops on the CPU).
 
-Patch extraction is the port's CUDA kernel (ops/patch.py); it runs twice
-per pyramid level, on the raw level for the IC angle and on the blurred
-one for BRIEF.
+Extraction runs in two passes: detection (FAST, cell top-k, top-k,
+subpixel refinement) level by level, then one ``orb_describe`` call for
+the keypoints of every level (ops/describe.py: one CUDA kernel launch per
+frame on the card; the reference's blur, patch gathers, IC angle and
+BRIEF on the CPU).
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ import torch
 from object_slam_tpu_torch.device import resolve_device
 from object_slam_tpu_torch.features import fast as fast_mod
 from object_slam_tpu_torch.features import pyramid as pyr_mod
-from object_slam_tpu_torch.ops.patch import extract_patches
+from object_slam_tpu_torch.ops.describe import (HALF, N_ANGLE_BINS, PATCH,
+                                                orb_describe)
 from object_slam_tpu_torch.ops.scatter import topk
 
 
@@ -46,10 +49,6 @@ class Keypoints(NamedTuple):
 
 
 _PATTERN_FILE = os.path.join(os.path.dirname(__file__), "brief_pattern.npy")
-
-PATCH = 32          # patch window size; keypoint sits at (HALF, HALF)
-HALF = 15
-N_ANGLE_BINS = 64   # steered-BRIEF rotation quantization (5.6 deg)
 
 
 def make_pattern(n_bits: int = 256, patch_radius: int = 13, seed: int = 7):
@@ -103,23 +102,6 @@ def _cell_topk(resp, cell: int, k_per_cell: int):
     return vals.reshape(-1), ys, xs
 
 
-def _ic_angle_from_patches(patches, radius: int = 15,
-                           stability_tau: float = 0.02):
-    """Intensity-centroid orientation of [N, PATCH, PATCH] windows with the
-    keypoint at (HALF, HALF); near-symmetric patches fall back to 0."""
-    d = torch.arange(PATCH, dtype=patches.dtype, device=patches.device) - HALF
-    dy = d[:, None]
-    dx = d[None, :]
-    circ = (dy * dy + dx * dx) <= radius * radius
-    pm = patches * circ[None]
-    m10 = torch.sum(pm * dx[None], dim=(1, 2))
-    m01 = torch.sum(pm * dy[None], dim=(1, 2))
-    mass = torch.sum(torch.abs(pm), dim=(1, 2)) * radius
-    mag = torch.sqrt(m10 * m10 + m01 * m01)
-    ang = torch.atan2(m01, m10)
-    return torch.where(mag > stability_tau * mass, ang, torch.zeros_like(ang))
-
-
 def make_brief_matrix(pattern, n_bins: int = N_ANGLE_BINS):
     """The reference's binned steered-BRIEF difference operator
     D [PATCH*PATCH, n_bins*256] (float32 numpy): for bin b and bit j, -1 at
@@ -153,35 +135,6 @@ def make_brief_index(pattern, n_bins: int = N_ANGLE_BINS):
     return i1, i2
 
 
-def pack_bits(bits):
-    """[n, 256] bool -> [n, 8] int32 words (bit k of word w = bit 32w+k)."""
-    n = bits.shape[0]
-    shifts = torch.arange(32, device=bits.device, dtype=torch.int64)
-    words = torch.sum(bits.reshape(n, 8, 32).long() << shifts, dim=-1)
-    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
-    return words.to(torch.int32)
-
-
-def _brief_from_patches(patches, angles, idx1, idx2,
-                        n_bins: int = N_ANGLE_BINS):
-    """patches [N, PATCH, PATCH] (blurred), angles [N] -> [N, 8] int32.
-
-    The reference rounds the patches to bf16 and evaluates every bit of
-    every rotation bin as one matmul with D, then selects each keypoint's
-    bin. D's column holds one -1 and one +1, so that product is exactly
-    p2 - p1 of the bf16-rounded samples (exact in f32); this gathers the
-    two samples of the keypoint's own bin instead, with the same bits."""
-    n = patches.shape[0]
-    flat = patches.reshape(n, PATCH * PATCH).to(torch.bfloat16) \
-        .to(torch.float32)
-    bin_idx = torch.remainder(
-        torch.round(angles / (2.0 * math.pi) * n_bins).to(torch.int64),
-        n_bins)
-    p1 = torch.gather(flat, 1, idx1[bin_idx])
-    p2 = torch.gather(flat, 1, idx2[bin_idx])
-    return pack_bits((p2 - p1) > 0)
-
-
 class OrbExtractor:
     """ORB pipeline for a fixed image geometry.
 
@@ -204,21 +157,33 @@ class OrbExtractor:
             self.budgets[0] += self.n_kp - total
         self.pattern = make_pattern()
         i1, i2 = make_brief_index(self.pattern)
-        self.brief_idx1 = torch.from_numpy(i1).to(self.device)
-        self.brief_idx2 = torch.from_numpy(i2).to(self.device)
+        self.brief_idx1 = torch.from_numpy(i1.astype(np.int16)).to(self.device)
+        self.brief_idx2 = torch.from_numpy(i2.astype(np.int16)).to(self.device)
+        self._ids: dict = {}
 
     def __call__(self, img) -> Keypoints:
         return self._extract(img)
 
+    def _level_ids(self, counts, device):
+        """[N] int32 pyramid level of each keypoint for counts ((level, n),
+        ...); the counts follow from the geometry, so this builds once."""
+        key = (counts, device)
+        if key not in self._ids:
+            lvl = np.repeat(np.asarray([l for l, _ in counts], np.int32),
+                            [n for _, n in counts])
+            self._ids[key] = torch.from_numpy(lvl).to(device)
+        return self._ids[key]
+
     def _extract(self, img) -> Keypoints:
         o = self.cfg.orb
-        levels = pyr_mod.build_pyramid(img, o.n_levels, o.scale_factor)
-        outs = []
+        levels = [x.contiguous() for x in
+                  pyr_mod.build_pyramid(img, o.n_levels, o.scale_factor)]
+        # pass 1, level by level: detection and subpixel refinement
+        det, counts = [], []
         for l, lvl_img in enumerate(levels):
             n_l = self.budgets[l]
             if n_l <= 0:
                 continue
-            lvl_img = lvl_img.contiguous()
             resp, raw_score = fast_mod.detect_dual(
                 lvl_img, float(o.min_th_fast), float(o.ini_th_fast),
                 o.fast_arc_len, border=o.edge_threshold)
@@ -231,29 +196,21 @@ class OrbExtractor:
             vals, sel = topk(scores, min(n_l, scores.shape[0]))
             ys, xs = ys[sel], xs[sel]
             valid = vals > 0
-
-            blurred = pyr_mod.gaussian_blur(lvl_img).contiguous()
-            cy = (ys - HALF).to(torch.int32).contiguous()
-            cx = (xs - HALF).to(torch.int32).contiguous()
-            p_raw = extract_patches(lvl_img, cy, cx)
-            p_blur = extract_patches(blurred, cy, cx)
-            ang = _ic_angle_from_patches(p_raw, radius=o.half_patch)
-            desc = _brief_from_patches(p_blur, ang, self.brief_idx1,
-                                       self.brief_idx2)
             dy, dx = fast_mod.subpixel_refine(raw_score, ys, xs)
             scale = o.scale_factor ** l
             uv = torch.stack([(xs.to(torch.float32) + dx) * scale,
                               (ys.to(torch.float32) + dy) * scale], -1)
-            outs.append(Keypoints(
-                uv=uv, response=torch.where(valid, vals,
-                                            torch.zeros_like(vals)),
-                angle=ang,
-                level=torch.full(ys.shape, l, dtype=torch.int32,
-                                 device=img.device),
-                desc=desc, valid=valid))
-
-        kp = Keypoints(*[torch.cat([getattr(x, f) for x in outs], dim=0)
-                         for f in Keypoints._fields])
+            det.append((uv, torch.where(valid, vals, torch.zeros_like(vals)),
+                        valid, ys, xs))
+            counts.append((l, ys.shape[0]))
+        uv, response, valid, ys, xs = [torch.cat(c) for c in zip(*det)]
+        # pass 2: the IC angle and steered BRIEF of every level at once
+        level = self._level_ids(tuple(counts), img.device)
+        angle, desc = orb_describe(
+            levels, (ys - HALF).to(torch.int32), (xs - HALF).to(torch.int32),
+            level, self.brief_idx1, self.brief_idx2, radius=o.half_patch)
+        kp = Keypoints(uv=uv, response=response, angle=angle, level=level,
+                       desc=desc, valid=valid)
         n = kp.uv.shape[0]
         if n < self.n_kp:
             pad = self.n_kp - n

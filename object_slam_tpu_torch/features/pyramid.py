@@ -69,12 +69,17 @@ def build_pyramid(img, n_levels: int, scale: float):
     return out
 
 
+def blur_weights(sigma: float = 2.0, radius: int = 3) -> np.ndarray:
+    """The blur's 2*radius+1 float32 taps; tap i weighs img[x - radius + i]."""
+    x = np.arange(-radius, radius + 1, dtype=np.float32)
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    return k / k.sum()
+
+
 def gaussian_blur(img, sigma: float = 2.0, radius: int = 3):
     """Separable 7x7 Gaussian blur as shift-and-accumulate with the
     reference's WRAPPING borders (torch.roll with the same signs)."""
-    x = np.arange(-radius, radius + 1, dtype=np.float32)
-    k = np.exp(-0.5 * (x / sigma) ** 2)
-    k = k / k.sum()
+    k = blur_weights(sigma, radius)
     out = torch.zeros_like(img)
     for i, wgt in enumerate(k):
         out = out + float(wgt) * torch.roll(img, radius - i, dims=1)

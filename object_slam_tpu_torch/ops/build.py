@@ -15,7 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict
+from typing import Dict, List, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -36,23 +36,44 @@ def _nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
+def _so_path(name: str) -> str:
+    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+
+
+def load_all(names: Sequence[str]) -> List[ctypes.CDLL]:
+    """The loaded libraries for csrc/<name>.cu, each built on first use;
+    the missing ones build together, one nvcc process each."""
+    started = []
+    for name in dict.fromkeys(names):
+        if name in _libs:
+            continue
+        so = _so_path(name)
+        if os.path.exists(so):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        src = os.path.join(CSRC, name + ".cu")
+        started.append((name, so, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, so, tmp, proc in started:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in names:
+        if name not in _libs:
+            _libs[name] = ctypes.CDLL(_so_path(name))
+    return [_libs[name] for name in names]
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, built on first use."""
     lib = _libs.get(name)
-    if lib is not None:
-        return lib
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    so = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
-    if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        out = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                             text=True)
-        if out.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{out.stdout}")
-        os.replace(tmp, so)
-    _libs[name] = lib = ctypes.CDLL(so)
-    return lib
+    return lib if lib is not None else load_all([name])[0]

@@ -6,8 +6,9 @@ Runs SlamSystem.track_rgbd (TUM VGA, objects off, strict readback) on
 frames rendered like chip_smoke.py, then traces the last ``--window``
 frames with torch.profiler. Prints one JSON object: host ms per frame, the
 device's busy share of that wall time (union of kernel intervals), kernel
-launches per frame, CUDA synchronizations per frame, and the kernels and
-host ops that take the most time. Needs a card.
+launches per frame, CUDA synchronizations per frame, the device time of
+the port's own kernels, and the kernels and host ops that take the most
+time. Needs a card.
 """
 
 from __future__ import annotations
@@ -20,6 +21,10 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
+
+
+# the port's hand-written kernels, by a part of their CUDA names
+PORT_KERNELS = ("orb_describe_kernel", "patch_extract_kernel")
 
 
 def busy_ms(events):
@@ -76,6 +81,7 @@ def main():
     ka = prof.key_averages()
     top_dev = sorted(ka, key=lambda k: -k.device_time_total)[:12]
     top_cpu = sorted(ka, key=lambda k: -k.self_cpu_time_total)[:12]
+    port = [k for k in ka if any(n in k.key for n in PORT_KERNELS)]
     w = args.window
     out = {
         "card": card, "frames_traced": w,
@@ -87,6 +93,8 @@ def main():
         "sync_like_calls_per_frame": n_sync / w,
         "top_device": [(k.key, round(k.device_time_total / 1e3 / w, 4),
                         k.count // w) for k in top_dev],
+        "port_kernels": [(k.key, round(k.device_time_total / 1e3 / w, 4),
+                          k.count // w) for k in port],
         "top_host_self": [(k.key, round(k.self_cpu_time_total / 1e3 / w, 4),
                            k.count // w) for k in top_cpu],
     }
