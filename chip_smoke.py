@@ -15,11 +15,20 @@ Phases, each fatal on failure:
      same work: extract_patches (one frame's 16 per-level launches, off the
      main path since orb_describe took its place) and orb_describe (one
      launch for the frame);
-  3. the slice: SlamSystem.track_rgbd on 40 rendered TUM-VGA frames
-     (objects off, strict readback) on the card, with every kernel's
+  3. the slice with objects off: SlamSystem.track_rgbd on 40 rendered
+     TUM-VGA frames (strict readback) on the card, with every kernel's
      launch count set to 0 before that run and read after it:
      orb_describe once per frame, extract_patches never;
-  4. one JSON line of the kernels, the card line, and the last line
+  4. the main path, objects on: the same 40 frames with their detections
+     (SlamSystem(enable_objects=True)), the counts again set to 0 before
+     and read after; held to the JAX package's CPU run of the same frames
+     (tests/torch_fixtures/objects_tum_vga.npz, make_reference.py): all
+     frames tracked as the reference tracked them, the same keyframe
+     frames, every frame's pose within 2 mm / 0.1 deg of the reference's,
+     ATE < 0.05 m and within 0.02 mm of the reference's (below the
+     0.05 mm that objects on moves it from objects off), the same object
+     census, semantic constraints > 0 and within 10%;
+  5. one JSON line of the kernels, the card line, and the last line
      {"ok": true, "device": {...}}.
 
 Exits non-zero without a card, and when the port's package is absent.
@@ -29,6 +38,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -42,6 +52,12 @@ F64_FLOP_PER_S = 34e12
 KERNELS = ("patch_extract", "orb_describe")
 N_FRAMES = 40
 WARMUP = 8
+# the objects-on ATE band around the reference's: on this scene the object
+# layer moves the ATE by about 0.05 mm, so a wider band could not tell an
+# optimizer that never moves the pose from one that does
+ATE_BAND_M = 2e-5
+REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                         "torch_fixtures", "objects_tum_vga.npz")
 
 
 def fail(msg: str):
@@ -110,12 +126,13 @@ def render(cfg, n_frames):
     for b in scene.boxes:
         b["size"] = 0.9
     poses = orbit_poses(n_frames, step=0.01)
-    frames = []
+    frames, sems = [], []
     for T in poses:
-        gray, depth, rgb, _ = scene.render_rgbd(T)
+        gray, depth, rgb, sem = scene.render_rgbd(T)
         frames.append((gray.astype(np.float32), depth.astype(np.float32),
                        rgb.astype(np.float32)))
-    return poses, frames
+        sems.append(scene.sem_arrays(sem, cfg.semantic.max_instances))
+    return poses, frames, sems
 
 
 def main_path_inputs(cfg, gray):
@@ -324,57 +341,121 @@ def phase_describe(ex, levels, corners):
                        "IC angle and steered BRIEF of a window"}
 
 
-def phase_slice(cfg, poses, frames, card):
+def run_path(cfg, poses, frames, sems, card, objects: bool):
+    """SlamSystem.track_rgbd over the frames on the card, the kernels'
+    launch counts set to 0 just before and read just after. Fails unless
+    every frame tracks with no relocalization, ATE < 0.05 m and the
+    launches are one orb_describe per frame and no extract_patches.
+    Returns the system, the ATE, the launches, the per-frame Tcw [F, 4, 4]
+    and the per-frame pose_ok flags."""
     import torch
     from object_slam_tpu_torch.eval.ate import ate_rmse
     from object_slam_tpu_torch.ops import describe as dsc
     from object_slam_tpu_torch.ops import patch as patch_mod
     from object_slam_tpu_torch.slam.system import SlamSystem
 
-    sys_ = SlamSystem(cfg, enable_objects=False, device="cuda", profile=True)
+    name = "objects on" if objects else "objects off"
+    sys_ = SlamSystem(cfg, enable_objects=objects, device="cuda",
+                      profile=True)
     counters = {"extract_patches": patch_mod.extract_patches,
                 "orb_describe": dsc.orb_describe}
     for fn in counters.values():
         fn.launches = 0
-    times, est, gt, oks = [], [], [], []
+    times, est, gt, oks, tcws = [], [], [], [], []
     for i, (T, (gray, depth, rgb)) in enumerate(zip(poses, frames)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        f = sys_.track_rgbd(gray, depth, rgb, None, timestamp=i / 30.0)
+        f = sys_.track_rgbd(gray, depth, rgb, sems[i] if objects else None,
+                            timestamp=i / 30.0)
         Tcw = f.Tcw.cpu().numpy()
         times.append((time.perf_counter() - t0) * 1e3)
         if not np.all(np.isfinite(Tcw)):
-            fail(f"frame {i}: non-finite pose")
+            fail(f"{name}, frame {i}: non-finite pose")
+        tcws.append(Tcw)
         est.append(np.linalg.inv(Tcw)[:3, 3])
         gt.append(np.linalg.inv(T)[:3, 3])
         oks.append(bool(f.pose_ok))
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = {k: fn.launches for k, fn in counters.items()}
     ate = ate_rmse(np.array(est), np.array(gt))
     steady = np.asarray(times[WARMUP:])
     n_kf, n_pts = sys_.n_keyframes, sys_.n_points
     stage = {k: float(np.mean(v[1:] if len(v) > 1 else v))
              for k, v in sys_.stage_ms.items()}
-    print(f"slice [{card}]: {sum(oks)}/{len(oks)} tracked, {n_kf} KFs, "
+    print(f"{name} [{card}]: {sum(oks)}/{len(oks)} tracked, {n_kf} KFs, "
           f"{n_pts} points, ATE {ate:.6f} m, median "
           f"{np.median(steady):.3f} ms/frame, mean {np.mean(steady):.3f} "
           f"ms/frame ({1e3 / np.median(steady):.3f} frames/s median) after "
-          f"{WARMUP} warm-up frames; reloc skipped {sys_.n_reloc_skipped}",
-          flush=True)
-    print("slice stage mean ms [" + card + "]: " + json.dumps(
+          f"{WARMUP} warm-up frames; reloc skipped {sys_.n_reloc_skipped}; "
+          f"launches {launches}", flush=True)
+    print(f"{name} stage mean ms [{card}]: " + json.dumps(
         {k: round(v, 3) for k, v in stage.items()}), flush=True)
-    print("slice frame ms: " + json.dumps([round(t, 3) for t in times]),
+    print(f"{name} frame ms: " + json.dumps([round(t, 3) for t in times]),
           flush=True)
     if not all(oks):
-        fail(f"untracked frames: {[i for i, o in enumerate(oks) if not o]}")
+        fail(f"{name}: untracked frames "
+             f"{[i for i, o in enumerate(oks) if not o]}")
     if n_kf < 2:
-        fail(f"only {n_kf} keyframes")
+        fail(f"{name}: only {n_kf} keyframes")
     if sys_.n_reloc_skipped != 0:
-        fail(f"{sys_.n_reloc_skipped} frames needed relocalization")
+        fail(f"{name}: {sys_.n_reloc_skipped} frames needed relocalization")
     if not ate < 0.05:
-        fail(f"ATE {ate} m >= 0.05 m")
-    want = {"extract_patches": 0, "orb_describe": N_FRAMES}
+        fail(f"{name}: ATE {ate} m >= 0.05 m")
+    want = {"extract_patches": 0, "orb_describe": len(frames)}
     if launches != want:
-        fail(f"main-path kernel launches {launches}, expected {want}")
+        fail(f"{name}: kernel launches {launches}, expected {want}")
+    return sys_, ate, launches, np.stack(tcws), oks
+
+
+def rot_deg(Ra, Rb):
+    c = (np.trace(Ra.T.astype(np.float64) @ Rb) - 1.0) / 2.0
+    return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+
+def phase_objects(cfg, poses, frames, sems, card):
+    """The main path, objects on, held to the JAX CPU run of the same
+    frames."""
+    ref = np.load(REFERENCE)
+    gray_sum = [float(np.sum(g, dtype=np.float64)) for g, _, _ in frames]
+    if not np.allclose(gray_sum, ref["gray_sum"], rtol=1e-9, atol=0):
+        fail("the rendered frames differ from the reference run's")
+    sys_, ate, launches, tcws, tracked = run_path(cfg, poses, frames, sems,
+                                                  card, True)
+    m = sys_.map
+    labels = m.obj_label[m.obj_valid].cpu().numpy()
+    lab, cnt = np.unique(labels, return_counts=True)
+    census = dict(zip(lab.tolist(), cnt.tolist()))
+    ref_census = dict(zip(ref["census_labels"].tolist(),
+                          ref["census_counts"].tolist()))
+    n_sem = sys_.objects.semantic_constraints
+    ref_sem = int(ref["semantic_constraints"])
+    kf_frames = m.kf_frame_id[m.kf_valid].cpu().numpy().tolist()
+    print(f"objects on: census {census} (reference {ref_census}), semantic "
+          f"constraints {n_sem} (reference {ref_sem}), KFs at frames "
+          f"{kf_frames} (reference {ref['kf_frames'].tolist()}), ATE "
+          f"{ate:.6f} m (reference {float(ref['ate']):.6f} m)", flush=True)
+    ref_tcw = ref["tcw"]
+    d_t = [float(np.linalg.norm(a[:3, 3] - b[:3, 3]))
+           for a, b in zip(tcws, ref_tcw)]
+    d_r = [rot_deg(a[:3, :3], b[:3, :3]) for a, b in zip(tcws, ref_tcw)]
+    print(f"objects on: per-frame pose against the reference: max "
+          f"{max(d_t) * 1e3:.4f} mm, {max(d_r):.5f} deg", flush=True)
+    if tracked != ref["tracked"].tolist():
+        fail(f"objects on: tracked flags {tracked} differ from the "
+             f"reference's")
+    if kf_frames != ref["kf_frames"].tolist():
+        fail(f"objects on: KFs at frames {kf_frames}, reference "
+             f"{ref['kf_frames'].tolist()}")
+    if not (max(d_t) < 2e-3 and max(d_r) < 0.1):
+        fail(f"objects on: a frame's pose is {max(d_t)} m / {max(d_r)} deg "
+             f"from the reference's (limits 2 mm / 0.1 deg)")
+    if not abs(ate - float(ref["ate"])) <= ATE_BAND_M:
+        fail(f"objects on: ATE {ate} m is not within {ATE_BAND_M} m of the "
+             f"reference's {float(ref['ate'])} m")
+    if census != ref_census:
+        fail(f"objects on: census {census} != the reference's {ref_census}")
+    if not (n_sem > 0 and abs(n_sem - ref_sem) <= 0.1 * ref_sem):
+        fail(f"objects on: {n_sem} semantic constraints, reference "
+             f"{ref_sem}")
     return launches
 
 
@@ -402,17 +483,19 @@ def main():
 
     cfg = tum_cfg()
     t0 = time.perf_counter()
-    poses, frames = render(cfg, N_FRAMES)
+    poses, frames, sems = render(cfg, N_FRAMES)
     print(f"rendered {N_FRAMES} frames in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
     ex, levels, corners = main_path_inputs(cfg, frames[0][0])
     rows = [phase_patches(levels, corners),
             phase_describe(ex, levels, corners)]
-    launches = phase_slice(cfg, poses, frames, card)
+    _, _, launches_off, _, _ = run_path(cfg, poses, frames, sems, card, False)
+    launches = phase_objects(cfg, poses, frames, sems, card)
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["launches_per_frame"] = row["launches"] // N_FRAMES
+        row["launches_objects_off"] = launches_off[row["name"]]
         timed = ("ms", "device_ms", "plain_ms", "bound_ms") + \
             (("library_ms",) if row["library_ms"] is not None else ())
         for k in timed:

@@ -1,8 +1,8 @@
 """Synthetic RGB-D / stereo scene generator for tests and benchmarks.
 
 A numpy copy of the parts of object_slam_tpu/datasets/synthetic.py that
-the port's tests and chip_smoke.py use (scene, RGB-D render, orbit
-trajectory), so the port renders the same frames from the same seed
+the port's tests and chip_smoke.py use (scene, RGB-D render, detection
+slab, orbit trajectory), so the port renders the same frames from the same seed
 without importing the JAX package.
 
 The reference repository ships no data (images/masks are external
@@ -453,6 +453,21 @@ class SyntheticScene:
                            xs_.max() - xs_.min(), ys_.max() - ys_.min()])
             valid.append(True)
         return img, depth, rgb, (masks, labels, probs, bboxes, valid)
+
+    def sem_arrays(self, sem, max_instances):
+        """render_rgbd's detection lists -> the static [I] slab
+        (masks, labels, probs, bboxes, valid) that track_rgbd takes."""
+        masks, labels, probs, bboxes, valid = sem
+        I = max_instances
+        M = np.zeros((I, self.h, self.w), bool)
+        L = np.full((I,), -1, np.int32)
+        Pb = np.zeros((I,), np.float32)
+        B = np.zeros((I, 4), np.float32)
+        V = np.zeros((I,), bool)
+        for i in range(min(len(masks), I)):
+            M[i], L[i], Pb[i], B[i], V[i] = (masks[i], labels[i], probs[i],
+                                             bboxes[i], valid[i])
+        return M, L, Pb, B, V
 
 
 def orbit_poses(n: int, radius: float = 0.4, step: float = 0.03):

@@ -1,9 +1,11 @@
-"""Per-frame front-end data: ORB extraction, undistortion, RGB-D depth.
+"""Per-frame front-end data: ORB extraction, undistortion, RGB-D depth,
+and the frame's Object2D slab.
 
-Counterpart of object_slam_tpu/slam/frame.py, RGB-D without objects: the
-``_build_rgbd_noobj`` path. Frames that carry detections need the object
-layer (``build_object2ds``), which the next slice ports; they raise here.
-The stereo, mono and single-blob builders wait for later slices too.
+Counterpart of object_slam_tpu/slam/frame.py for RGB-D: frames with a
+valid detection take ``_build_rgbd`` (masks travel bit-packed and unpack
+on the device, then ``build_object2ds``), the others the object-free
+``_build_rgbd_noobj``, as the reference dispatches. The stereo, mono and
+single-blob builders wait for later slices.
 """
 
 from __future__ import annotations
@@ -93,20 +95,28 @@ class FrameBuilder:
     # ------------------------------------------------------------------
     def build_rgbd(self, gray, depth_img, rgb, sem_arrays, timestamp):
         """gray [H, W] (or None: luma from rgb); depth_img [H, W] metric
-        (or raw u16); rgb [H, W, 3]. sem_arrays must carry no valid
-        detection: the object layer is not in this slice."""
-        if sem_arrays is not None and np.any(np.asarray(sem_arrays[4])):
-            raise NotImplementedError(
-                "frames with detections need the object layer "
-                "(ROADMAP.md, queue 1: the object slice)")
-        return self._build_rgbd_noobj(gray, depth_img, timestamp,
-                                      rgb if gray is None else None)
+        (or raw u16); rgb [H, W, 3]; sem_arrays = (masks, labels, probs,
+        bboxes, valid), the static [I] detection slab, masks as [I, H, W]
+        bool or bit-packed [I, H, ceil(W/8)] uint8 (pack_sem_arrays).
 
-    def _build_rgbd_noobj(self, gray, depth_img, timestamp,
-                          rgb=None) -> FrameData:
-        cfg = self.cfg
-        gray = _luma(self._image(rgb)) if gray is None else self._image(gray)
-        depth_img = self._metric_depth(depth_img)
+        Frames with no valid detection take the object-free build, whether
+        or not the system runs objects (the reference's host dispatch)."""
+        if sem_arrays is None or not np.any(np.asarray(sem_arrays[4])):
+            return self._build_rgbd_noobj(gray, depth_img, timestamp,
+                                          rgb if gray is None else None)
+        return self._build_rgbd(gray, depth_img, rgb,
+                                *self.pack_sem_arrays(sem_arrays), timestamp)
+
+    def pack_sem_arrays(self, sem_arrays):
+        """Bit-pack the mask slab for transfer (idempotent)."""
+        masks = sem_arrays[0]
+        if getattr(masks, "dtype", None) in (np.dtype(np.uint8),
+                                             torch.uint8):
+            return tuple(sem_arrays)
+        return (o2d_mod.pack_mask_bits(masks),) + tuple(sem_arrays[1:])
+
+    def _keypoints(self, gray, depth_img):
+        """ORB keypoints, undistorted pixels and the RGB-D depth lookup."""
         kp = self.extractor(gray.contiguous())
         uv_und = cam_mod.undistort_points(self.K, kp.uv)
         h, w = gray.shape
@@ -115,8 +125,35 @@ class FrameBuilder:
         z = depth_img[yy, xx]
         ur, z_ok = stereo_mod.rgbd_virtual_right(uv_und, z, self.K.bf)
         depth = torch.where(z_ok & kp.valid, z, torch.full_like(z, -1.0))
+        return kp, uv_und, ur, depth
+
+    def _build_rgbd_noobj(self, gray, depth_img, timestamp,
+                          rgb=None) -> FrameData:
+        cfg = self.cfg
+        gray = _luma(self._image(rgb)) if gray is None else self._image(gray)
+        kp, uv_und, ur, depth = self._keypoints(
+            gray, self._metric_depth(depth_img))
         return self._assemble(kp, uv_und, ur, depth, self._empty_obj,
                               timestamp)
+
+    def _build_rgbd(self, gray, depth_img, rgb, masks_packed, labels, probs,
+                    bboxes, inst_valid, timestamp) -> FrameData:
+        cfg = self.cfg
+        masks = o2d_mod.unpack_mask_bits(self._tensor(masks_packed),
+                                         cfg.camera.width)
+        rgb = self._image(rgb)
+        gray = _luma(rgb) if gray is None else self._image(gray)
+        kp, uv_und, ur, depth = self._keypoints(
+            gray, self._metric_depth(depth_img))
+        with torch.profiler.record_function("object2d"):
+            obj = o2d_mod.build_object2ds(
+                rgb, masks, self._tensor(labels), self._image(probs),
+                self._image(bboxes), self._tensor(inst_valid).to(torch.bool),
+                kp.uv, depth, kp.valid,
+                th_depth=cfg.camera.th_depth * cfg.camera.baseline,
+                min_kps=cfg.semantic.min_kps_rgbd,
+                mask_margin=cfg.semantic.mask_margin)
+        return self._assemble(kp, uv_und, ur, depth, obj, timestamp)
 
     def _assemble(self, kp: Keypoints, uv_und, ur, depth, obj,
                   timestamp) -> FrameData:

@@ -1,16 +1,17 @@
-"""System facade: the per-frame orchestration loop (RGB-D, objects off).
+"""System facade: the per-frame orchestration loop (RGB-D).
 
 Counterpart of object_slam_tpu/slam/system.py's strict state machine:
 ``track_rgbd`` builds the frame; the first frame with enough depth
-initializes the map (``_stereo_init_impl``); every later frame runs the
-fused tracking chain and is resolved at once (``_track_fused`` followed
-by ``_resolve_one``: the reference's ``pipelined_readback=False``
+initializes the map (``_stereo_init_impl``, then the object update); every
+later frame runs the fused tracking chain, with the object stages as its
+hooks when objects are on, and is resolved at once (``_track_fused``
+followed by ``_resolve_one``: the reference's ``pipelined_readback=False``
 behaviour), inserting keyframes and running the local-mapping pass
 synchronously.
 
 Not in this slice, and raising ``NotImplementedError`` with the ROADMAP
-item that ports them: objects, loop closing, async mapping, stereo and
-mono sensors, the staged (non-fused) path, the pipelined readback, the
+item that ports them: loop closing, async mapping, stereo and mono
+sensors, the staged (non-fused) path, the pipelined readback, the
 single-blob entry and relocalization. Where the reference would
 relocalize, the port records the frame LOST and counts it in
 ``n_reloc_skipped``.
@@ -36,6 +37,7 @@ from object_slam_tpu_torch.slam import local_mapping, map_ops
 from object_slam_tpu_torch.slam import tracking as trk
 from object_slam_tpu_torch.slam.frame import FrameBuilder, FrameData
 from object_slam_tpu_torch.slam.map_state import init_map
+from object_slam_tpu_torch.slam.objects import ObjectEngine
 
 NOT_INITIALIZED, OK, LOST = 0, 1, 2
 
@@ -63,8 +65,6 @@ class SlamSystem:
                  device=None, profile: bool = False):
         self.cfg = cfg or SlamConfig()
         cfg = self.cfg
-        if enable_objects:
-            raise _not_in_slice("enable_objects=True", "the object layer")
         if enable_loop:
             raise _not_in_slice("enable_loop=True", "loop closing")
         if async_mapping:
@@ -91,6 +91,15 @@ class SlamSystem:
         self.map = init_map(cfg.caps, cfg.objects.history_capacity,
                             device=self.device)
         self.enable_mapping = enable_mapping
+        self.objects = (ObjectEngine(cfg, self.K, device=self.device)
+                        if enable_objects else None)
+        self._obj_hooks = None
+        if self.objects is not None:
+            self._obj_hooks = (
+                self._timed("object_assoc", self.objects.assoc_impl),
+                self._timed("semopt", self.objects.semopt_impl)
+                if cfg.objects.semopt_enabled else None,
+                self._timed("object_update", self.objects.update_impl))
 
         self.state = NOT_INITIALIZED
         self.last_frame: Optional[FrameData] = None
@@ -110,17 +119,27 @@ class SlamSystem:
 
     @contextmanager
     def _span(self, name: str):
-        if not self.profile:
+        """A torch.profiler range named ``name``; with ``profile`` also a
+        synchronized host timing into ``stage_ms``."""
+        with torch.profiler.record_function(name):
+            if not self.profile:
+                yield
+                return
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
             yield
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        yield
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.stage_ms.setdefault(name, []).append(
-            (time.perf_counter() - t0) * 1e3)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.stage_ms.setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e3)
+
+    def _timed(self, name: str, fn):
+        """fn inside a profiling span (stages nested in track_fused)."""
+        def run(*args):
+            with self._span(name):
+                return fn(*args)
+        return run
 
     # ------------------------------------------------------------------
     # public per-frame API
@@ -158,6 +177,9 @@ class SlamSystem:
             frame = frame._replace(
                 kp_pt=kp_pt, Tcw=torch.eye(4, device=self.device),
                 pose_ok=torch.tensor(True, device=self.device))
+            if self.objects is not None:
+                with self._span("object_update"):
+                    self.map, frame = self.objects.update(self.map, frame)
             self.state = OK
             self.last_kf_id = int(kf_id)
             self.frames_since_kf = 0
@@ -213,7 +235,7 @@ class SlamSystem:
         cfg = self.cfg
         last = self.last_frame
         with self._span("track_fused"):
-            self.map, tr2, _, packed, vel, okd = trk.track_frame_fused(
+            self.map, tr2, obj3d, packed, vel, okd = trk.track_frame_fused(
                 self.K, self.map, frame, last, self.velocity,
                 max(self.last_kf_id, 0), self.frames_since_kf, self.frame_id,
                 self._kf_inliers, self.scale_factors, self.inv_sigma2,
@@ -224,8 +246,10 @@ class SlamSystem:
                 local_cap=cfg.caps.local_search_pts,
                 local_radius_mult=cfg.tracking.local_radius_mult,
                 local_level_window=cfg.tracking.local_level_window,
-                motion_rot_check=cfg.tracking.motion_rot_check)
-        frame = frame._replace(Tcw=tr2.Tcw, kp_pt=tr2.kp_pt, pose_ok=okd)
+                motion_rot_check=cfg.tracking.motion_rot_check,
+                obj_hooks=self._obj_hooks)
+        frame = frame._replace(Tcw=tr2.Tcw, kp_pt=tr2.kp_pt, pose_ok=okd,
+                               obj3d=obj3d)
         self.velocity = vel
         pend = {"packed": packed, "frame": frame, "ts": self._host_ts,
                 "fid": self.frame_id, "ref": max(self.last_kf_id, 0)}
@@ -249,6 +273,9 @@ class SlamSystem:
             and self.frames_since_kf >= cfg.tracking.min_frames_between_kf)
         n_inl = int(p[50])
         self._last_n_inliers = n_inl
+        if self.objects is not None:
+            # N_AllSemanticConstraintNum analogue, from the same readback
+            self.objects.semantic_constraints += int(p[56])
 
         if not ok and n_inl < 10:
             self.n_reloc_skipped += 1

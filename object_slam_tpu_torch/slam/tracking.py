@@ -2,8 +2,9 @@
 
 Counterpart of object_slam_tpu/slam/tracking.py: motion-model tracking,
 reference-KF tracking, local-map point selection and tracking, the fused
-per-frame chain (objects off) and the keyframe policy. The reference's
-``lax.cond`` gates become host ``if``s on device scalars.
+per-frame chain (with the object stages as hooks) and the keyframe
+policy. The reference's ``lax.cond`` gates become host ``if``s on device
+scalars.
 
 Relocalization (``relocalize_try``) and the localization-mode VO tracker
 are not in this slice (ROADMAP.md).
@@ -278,14 +279,25 @@ def track_frame_fused(K, m: MapState, frame: FrameData, last: FrameData,
                       local_cap: int = MAX_LOCAL_POINTS,
                       local_radius_mult: float = 1.0,
                       local_level_window: int = 1,
-                      motion_rot_check: bool = True):
-    """The per-frame tracking chain with objects off: motion model (+ wide
-    retry) -> reference-KF fallback -> local map -> pre-LOST retry ->
-    keyframe decision. Returns (m, TrackResult, obj3d, packed [58] f32,
-    vel, ok) with packed laid out as in the reference:
+                      motion_rot_check: bool = True, obj_hooks=None):
+    """The per-frame tracking chain: motion model (+ wide retry) ->
+    reference-KF fallback -> [object association] -> local map ->
+    pre-LOST retry -> [semantic pose refinement] -> [object landmark
+    update] -> keyframe decision.
+
+    obj_hooks: None (objects off) or (assoc_fn, semopt_fn, update_fn) of
+    slam/objects.ObjectEngine (semopt_fn may be None):
+      assoc_fn(m, frame, last) -> obj3d [I]
+      semopt_fn(m, frame, tr)  -> (Tcw, kp_pt, inlier, n_sem)
+      update_fn(m, frame)      -> (m, obj3d)
+    The refined pose and its re-gated matches replace the local-map
+    result (the reference's default "full" adoption).
+
+    Returns (m, TrackResult, obj3d, packed [58] f32, vel, ok) with packed
+    laid out as in the reference:
       0:16 Tcw, 16:32 velocity, 32:48 Tcr, 48 ok, 49 need_kf,
       50 n_inliers, 51 n_matches, 52 ref_kf, 53 n_close_tracked,
-      54 n_close_untracked, 55 motion n_inliers, 56 n_semantic (0),
+      54 n_close_untracked, 55 motion n_inliers, 56 n_semantic,
       57 need_kf with the close/decay triggers suppressed."""
     T_pred = velocity @ last.Tcw
     motion_angle = last.angle if motion_rot_check else None
@@ -307,6 +319,15 @@ def track_frame_fused(K, m: MapState, frame: FrameData, last: FrameData,
             tr = tr_kf
     tr_motion_inl = tr.n_inliers
 
+    # object association before local-map tracking, at the motion-model
+    # pose; skipped when the frame carries no valid detection
+    if obj_hooks is not None:
+        assoc_fn, semopt_fn, update_fn = obj_hooks
+        has_dets = bool(torch.any(frame.obj.valid))
+        if has_dets:
+            frame = frame._replace(
+                obj3d=assoc_fn(m, frame._replace(Tcw=tr.Tcw), last))
+
     tr2, m2, ref_kf = track_local_map(
         K, m, frame, tr, scale_factors, inv_sigma2_lvl, log_scale,
         T_last=last.Tcw, local_cap=local_cap,
@@ -323,8 +344,23 @@ def track_frame_fused(K, m: MapState, frame: FrameData, last: FrameData,
             tr2, m2, ref_kf = tr2b, m2b, refb
     m = m2
 
+    # semantically constrained refinement of the local-map pose, when a
+    # detection matched a map object
     n_sem = torch.zeros((), dtype=torch.int32, device=frame.uv.device)
+    if (obj_hooks is not None and semopt_fn is not None
+            and bool(torch.any(frame.obj3d >= 0))):
+        Tcw, kp_pt, inl, n_sem = semopt_fn(m, frame, tr2)
+        tr2 = tr2._replace(
+            Tcw=Tcw, kp_pt=kp_pt, inlier=inl,
+            n_inliers=torch.sum((kp_pt >= 0).to(torch.int32)))
+
     ok = (tr2.n_inliers >= 30) | ((tr2.n_inliers >= 10) & (frame_id < 5))
+
+    # object landmark create/update + map regularization, on a good pose
+    obj3d_out = frame.obj3d
+    if obj_hooks is not None and has_dets and bool(ok):
+        m, obj3d_out = update_fn(
+            m, frame._replace(Tcw=tr2.Tcw, kp_pt=tr2.kp_pt))
 
     close = frame.valid & (frame.depth > 0) & (frame.depth < close_depth)
     tracked = tr2.kp_pt >= 0
@@ -357,4 +393,4 @@ def track_frame_fused(K, m: MapState, frame: FrameData, last: FrameData,
             n_close_untrk, tr_motion_inl, n_sem, need_kf_hard)])
     packed = torch.cat([tr2.Tcw.reshape(-1), vel.reshape(-1),
                         Tcr.reshape(-1), scalars])
-    return m, tr2, frame.obj3d, packed, vel, ok
+    return m, tr2, obj3d_out, packed, vel, ok

@@ -35,7 +35,7 @@ def main():
     from object_slam_tpu_torch.features.extractor import OrbExtractor
 
     cfg = tum_cfg()
-    _, frames = render(cfg, 1)
+    frames = render(cfg, 1)[1]
     img = torch.from_numpy(frames[0][0]).cuda()
     ex = OrbExtractor(cfg, device="cuda")
     times = []

@@ -32,7 +32,8 @@ def _sub(fx, prefix):
 
 def test_map_state_roundtrip_is_identity():
     m_np = _sub(np.load(FIXTURE), "mapping.m_out")
-    back = interop.map_state_to_numpy(interop.map_state_from_numpy(m_np))
+    back = interop.map_state_to_numpy(
+        interop.map_state_from_numpy(m_np, device="cpu"))
     assert set(back) == set(JMapState._fields) == set(MapState._fields)
     for f in JMapState._fields:
         assert back[f].dtype == m_np[f].dtype, f
@@ -46,7 +47,7 @@ def test_descriptor_bits_preserved():
     kp = interop.keypoints_from_numpy(dict(
         uv=np.zeros((1, 2), np.float32), response=np.zeros(1, np.float32),
         angle=np.zeros(1, np.float32), level=np.zeros(1, np.int32), desc=d,
-        valid=np.ones(1, bool)))
+        valid=np.ones(1, bool)), device="cpu")
     assert kp.desc.dtype == torch.int32
     assert np.array_equal(kp.desc.numpy().view(np.uint32), d)
 
@@ -94,6 +95,39 @@ def test_brief_pattern_byte_identical():
     assert digest(os.path.join(PKG, "features", "brief_pattern.npy")) == \
         digest(os.path.join(ROOT, "object_slam_tpu", "features",
                             "brief_pattern.npy"))
+
+
+@pytest.mark.parametrize("convert", ["map_state_from_numpy",
+                                     "keypoints_from_numpy",
+                                     "slab_from_numpy", "frame_from_numpy"])
+def test_converters_default_to_the_card(convert):
+    """Without a device they resolve to the card: with none, they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    args = ({},) if convert != "frame_from_numpy" else ({}, None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(interop, convert)(*args)
+
+
+def test_slab_and_frame_roundtrip_is_identity():
+    from object_slam_tpu.semantic.object2d import empty_slab as j_empty
+    from object_slam_tpu.slam.frame import FrameData as JFrameData
+    fx = np.load(FIXTURE)
+    fr = {k[len("fused.frame."):]: fx[k] for k in fx.files
+          if k.startswith("fused.frame.")}
+    slab = {f: np.array(v) for f, v in
+            j_empty(16, 120, 160, fr["uv"].shape[0])._asdict().items()}
+    slab["valid"][1] = True
+    slab["ftmap"][1, 2, 3] = (4.0, 5.0)
+    frame = interop.frame_from_numpy(fr, t_config.SlamConfig(),
+                                     device="cpu", obj=slab)
+    back = interop.frame_to_numpy(frame)
+    assert set(back) == set(JFrameData._fields)
+    for f, v in fr.items():
+        assert back[f].dtype == v.dtype and np.array_equal(back[f], v), f
+    for f, v in slab.items():
+        assert back["obj"][f].dtype == v.dtype, f
+        assert np.array_equal(back["obj"][f], v), f
 
 
 def _imports(path):

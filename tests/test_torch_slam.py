@@ -110,7 +110,6 @@ def test_no_relocalization_needed(run):
 
 
 @pytest.mark.parametrize("kwargs,tracking", [
-    (dict(enable_objects=True), {}),
     (dict(enable_objects=False, enable_loop=True), {}),
     (dict(enable_objects=False, async_mapping=True), {}),
     (dict(enable_objects=False), dict(pipelined_readback=True)),
@@ -128,17 +127,6 @@ def test_other_sensors_and_blob_entry_raise():
     sys_ = SlamSystem(small_cfg(), enable_objects=False, device="cpu")
     with pytest.raises(NotImplementedError):
         sys_.track_rgbd_blob(np.zeros(8, np.uint8), None)
-
-
-def test_detections_raise_until_the_object_slice():
-    cfg = small_cfg()
-    sys_ = SlamSystem(cfg, enable_objects=False, device="cpu")
-    sem = list(sys_.builder.empty_semantics())
-    sem[4] = sem[4].copy()
-    sem[4][0] = True
-    g = np.zeros((120, 160), np.float32)
-    with pytest.raises(NotImplementedError):
-        sys_.track_rgbd(g, g, None, tuple(sem))
 
 
 def test_default_device_is_the_card():

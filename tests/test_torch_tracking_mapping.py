@@ -81,9 +81,10 @@ def test_fused_step_matches_jax(fx):
     (float32 pose solves summing in another order)."""
     cfg = small_cfg()
     K, sf, inv_s2 = _consts(cfg)
-    m = interop.map_state_from_numpy(_sub(fx, "fused.m_in"))
-    frame = interop.frame_from_numpy(_sub(fx, "fused.frame"), cfg)
-    last = interop.frame_from_numpy(_sub(fx, "fused.last"), cfg)
+    m = interop.map_state_from_numpy(_sub(fx, "fused.m_in"), device="cpu")
+    frame = interop.frame_from_numpy(_sub(fx, "fused.frame"), cfg,
+                                     device="cpu")
+    last = interop.frame_from_numpy(_sub(fx, "fused.last"), cfg, device="cpu")
     m2, tr2, _, packed, vel, ok = t_trk.track_frame_fused(
         K, m, frame, last, torch.from_numpy(fx["fused.velocity"]),
         int(fx["fused.last_kf_id"]), int(fx["fused.frames_since_kf"]),
@@ -110,8 +111,9 @@ def test_insert_keyframe_matches_jax(fx):
     K, sf, _ = _consts(cfg)
     from object_slam_tpu_torch.slam.system import SlamSystem
     sys_ = SlamSystem(cfg, enable_objects=False, device="cpu")
-    m = interop.map_state_from_numpy(_sub(fx, "insert.m_in"))
-    frame = interop.frame_from_numpy(_sub(fx, "insert.frame"), cfg)
+    m = interop.map_state_from_numpy(_sub(fx, "insert.m_in"), device="cpu")
+    frame = interop.frame_from_numpy(_sub(fx, "insert.frame"), cfg,
+                                     device="cpu")
     m2, kf_id = sys_._insert_impl(
         m, frame, torch.from_numpy(fx["insert.Tcw"]),
         torch.from_numpy(fx["insert.kp_pt"]),
@@ -129,7 +131,7 @@ def test_process_new_keyframe_matches_jax(fx):
     m_in = _sub(fx, "mapping.m_in")
     kf_id = int(fx["mapping.kf_id"])
     assert kf_id >= 2
-    m = interop.map_state_from_numpy(m_in)
+    m = interop.map_state_from_numpy(m_in, device="cpu")
     m2 = local_mapping.process_new_keyframe(K, m, kf_id, sf, inv_s2, cfg)
     want = _sub(fx, "mapping.m_out")
     # the pass did work of every kind
@@ -145,7 +147,8 @@ def test_select_local_points_matches_jax(fx):
     jp, jok, jref = j_trk.select_local_points(jm, jnp.asarray(kp_pt),
                                               cap=512)
     tp, tok, tref = t_trk.select_local_points(
-        interop.map_state_from_numpy(m_np), torch.from_numpy(kp_pt), cap=512)
+        interop.map_state_from_numpy(m_np, device="cpu"),
+        torch.from_numpy(kp_pt), cap=512)
     assert np.array_equal(tp.numpy(), np.asarray(jp))
     assert np.array_equal(tok.numpy(), np.asarray(jok))
     assert int(tref) == int(jref)
@@ -157,7 +160,8 @@ def test_cull_points_matches_jax(fx):
     kf_id = int(fx["mapping.kf_id"])
     jm = JMapState(**{f: jnp.asarray(m_np[f]) for f in JMapState._fields})
     want = j_map_ops.cull_points(jm, kf_id)
-    got = map_ops.cull_points(interop.map_state_from_numpy(m_np), kf_id)
+    got = map_ops.cull_points(
+        interop.map_state_from_numpy(m_np, device="cpu"), kf_id)
     _assert_map_close(got, {f: np.asarray(getattr(want, f))
                             for f in JMapState._fields})
 
@@ -172,7 +176,7 @@ def test_recompute_point_stats_matches_jax(fx):
     m_np = _sub(fx, "mapping.m_out")
     want = j_map_state.recompute_point_stats(_jmap(m_np))
     got = t_map_state.recompute_point_stats(
-        interop.map_state_from_numpy(m_np))
+        interop.map_state_from_numpy(m_np, device="cpu"))
     _assert_map_close(got, {f: np.asarray(getattr(want, f))
                             for f in JMapState._fields})
 
@@ -180,7 +184,8 @@ def test_recompute_point_stats_matches_jax(fx):
 def test_covisibility_matches_jax(fx):
     m_np = _sub(fx, "mapping.m_out")
     want = np.asarray(j_map_state.covisibility(_jmap(m_np)))
-    got = t_map_state.covisibility(interop.map_state_from_numpy(m_np))
+    got = t_map_state.covisibility(
+        interop.map_state_from_numpy(m_np, device="cpu"))
     assert np.array_equal(got.numpy(), want)
     assert want.max() > 20
 

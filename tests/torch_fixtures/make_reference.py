@@ -1,18 +1,24 @@
 """Write the JAX reference outputs that the PyTorch port's tests compare with.
 
-The expensive JAX programs (the fused tracking step, keyframe insertion,
-the local-mapping pass, local BA and the 12-frame system run) take minutes
-to compile on the CPU, so their inputs and outputs are recorded here once
-and committed as ``tests/torch_fixtures/slice1.npz``.
+The expensive JAX programs take minutes to compile on the CPU, so their
+inputs and outputs are recorded here once and committed:
 
-Run from the repository root:
+* ``slice1.npz``: the fused tracking step, keyframe insertion, the
+  local-mapping pass, local BA and the 12-frame system run, objects off
+  (the small verify geometry: 160x120, 300 features, 4 levels; scene
+  seed 1, ``orbit_poses(12, step=0.02)``);
+* ``objects.npz``: the objects-on run of the object-stability scene
+  (8 frames) and one fused step with the object hooks, masks bit-packed;
+* ``objects_tum_vga.npz``: the objects-on run of ``chip_smoke.py``'s 40
+  TUM-VGA frames, which ``chip_smoke.py`` holds the card's run to.
 
-    python tests/torch_fixtures/make_reference.py
+Run from the repository root (all parts, or the ones named):
 
-The configuration is the small verify geometry (160x120, 300 features,
-4 levels), scene seed 1, ``orbit_poses(12, step=0.02)``, objects off and
-``pipelined_readback=False``. The rendered inputs' checksums are stored so
-that the tests can prove they re-render the same frames.
+    python tests/torch_fixtures/make_reference.py [slice1] [objects] [tum_vga]
+
+Every run uses ``pipelined_readback=False``. The rendered inputs'
+checksums are stored so that the tests can prove they re-render the same
+frames.
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ sys.path.insert(0, os.path.abspath(os.path.join(os.path.dirname(__file__),
                                                 "..", "..")))
 
 from object_slam_tpu.config import (CameraConfig, CapacityConfig,  # noqa: E402
-                                    OrbConfig, SlamConfig, TrackingConfig)
+                                    OrbConfig, SemanticConfig, SlamConfig,
+                                    TrackingConfig)
 from object_slam_tpu.datasets.synthetic import (SyntheticScene,  # noqa: E402
                                                 orbit_poses)
 from object_slam_tpu.eval.ate import ate_rmse  # noqa: E402
@@ -43,8 +50,15 @@ from object_slam_tpu.slam.map_state import MapState  # noqa: E402
 from object_slam_tpu.slam.system import SlamSystem  # noqa: E402
 from object_slam_tpu.solvers.ba import BAProblem, local_ba  # noqa: E402
 from object_slam_tpu.geometry.camera import Intrinsics  # noqa: E402
+from object_slam_tpu.semantic.object2d import Object2DSlab  # noqa: E402
 
-OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "slice1.npz")
+HERE = os.path.dirname(os.path.abspath(__file__))
+OUT = os.path.join(HERE, "slice1.npz")
+OUT_OBJECTS = os.path.join(HERE, "objects.npz")
+OUT_TUM_VGA = os.path.join(HERE, "objects_tum_vga.npz")
+TUM_VGA_FRAMES = 40
+OBJ_FRAMES = 8
+OBJ_FUSED_FRAME = 5
 N_FRAMES = 12
 SCENE_SEED = 1
 FUSED_FRAME = 6          # which fused call to record (frame index)
@@ -181,6 +195,99 @@ def record_system(out):
     put_map(out, "insert.m_out", m2)
 
 
+def objects_cfg():
+    """The object-stability scene's configuration (tests/test_slam.py
+    TestObjectStability) with strict readback."""
+    return small_cfg().replace(
+        semantic=SemanticConfig(mask_margin=3, min_kps_rgbd=4))
+
+
+def object_scene(cfg):
+    scene = SyntheticScene.make(cfg, seed=3, n_objects=2, plane_z=3.0)
+    for k, b in enumerate(scene.boxes):
+        b["size"] = 0.8
+        b["center"] = np.array([(-0.75, 0.75)[k], 0.1, 2.0])
+    return scene, orbit_poses(OBJ_FRAMES, step=0.008)
+
+
+def put_slab(out, prefix, slab):
+    """Slab fields; the masks bit-packed (np.packbits on the last axis)."""
+    for f in Object2DSlab._fields:
+        a = np.asarray(getattr(slab, f))
+        if f == "masks":
+            out[f"{prefix}.masks_packed"] = np.packbits(a, axis=-1)
+        else:
+            out[f"{prefix}.{f}"] = a
+
+
+def record_objects(out):
+    """The objects-on system run of the stability scene (8 frames) and one
+    fused step with the object hooks."""
+    cfg = objects_cfg()
+    scene, poses = object_scene(cfg)
+    sys_ = SlamSystem(cfg, enable_objects=True)
+    captured = []
+    jit_fused = sys_._jit_fused
+
+    def fused(m, frame, last, velocity, last_kf_id, since, fid, kf_inl):
+        res = jit_fused(m, frame, last, velocity, last_kf_id, since, fid,
+                        kf_inl)
+        captured.append(((m, frame, last, np.asarray(velocity),
+                          int(last_kf_id), int(since), int(fid),
+                          int(kf_inl)), res))
+        return res
+
+    sys_._jit_fused = fused
+    obj3d, tcw, oks, gray_sum = [], [], [], []
+    for i, T in enumerate(poses):
+        gray, depth, rgb, sem = scene.render_rgbd(T)
+        sa = scene.sem_arrays(sem, cfg.semantic.max_instances)
+        gray_sum.append(float(np.sum(gray, dtype=np.float64)))
+        f = sys_.track_rgbd(jnp.asarray(gray), jnp.asarray(depth),
+                            jnp.asarray(rgb), sa, i / 30.0)
+        obj3d.append(np.asarray(f.obj3d))
+        tcw.append(np.asarray(f.Tcw))
+        oks.append(bool(f.pose_ok))
+        print(f"objects frame {i}: ok={oks[-1]} obj3d={obj3d[-1][:4]} "
+              f"sem={sys_.objects.semantic_constraints}", flush=True)
+    traj = sys_.final_trajectory()
+    m = sys_.map
+    out.update({
+        "system.obj3d": np.stack(obj3d), "system.tcw": np.stack(tcw),
+        "system.tracked": np.asarray(oks),
+        "system.obj_valid": np.asarray(m.obj_valid),
+        "system.obj_label": np.asarray(m.obj_label),
+        "system.obj_track_id": np.asarray(m.obj_track_id),
+        "system.semantic_constraints": np.int64(
+            sys_.objects.semantic_constraints),
+        "system.kf_frame_id": np.asarray(m.kf_frame_id),
+        "system.n_points": np.int32(sys_.n_points),
+        "system.final_tcw": np.stack([t[1] for t in traj]).astype(
+            np.float32),
+        "inputs.gray_sum": np.asarray(gray_sum),
+    })
+
+    # one fused step whose detections engage all three object stages
+    (m, frame, last, vel, last_kf, since, fid, kf_inl), res = \
+        [c for c in captured if c[0][6] == OBJ_FUSED_FRAME][0]
+    put_map(out, "fused.m_in", m)
+    put_frame(out, "fused.frame", frame)
+    put_slab(out, "fused.frame.obj", frame.obj)
+    put_frame(out, "fused.last", last)
+    put_slab(out, "fused.last.obj", last.obj)
+    out.update({"fused.velocity": vel, "fused.last_kf_id": np.int32(last_kf),
+                "fused.frames_since_kf": np.int32(since),
+                "fused.frame_id": np.int32(fid),
+                "fused.last_kf_inliers": np.int32(kf_inl)})
+    m2, tr2, obj3d_out, packed, vel2, okd = res
+    put_map(out, "fused.m_out", m2)
+    out.update({"fused.packed": np.asarray(packed),
+                "fused.kp_pt": np.asarray(tr2.kp_pt),
+                "fused.obj3d": np.asarray(obj3d_out),
+                "fused.ok": np.bool_(okd)})
+    print("fused step: packed[48:58]", np.asarray(packed)[48:58], flush=True)
+
+
 def record_local_ba(out):
     """local_ba in its blocked form on a small seeded problem: 4 keyframes
     15 cm apart (the first fixed), 40 points each seen by 3-4 of them, 44
@@ -240,13 +347,87 @@ def record_local_ba(out):
                 "ba.pt_xyz": np.asarray(pt_xyz), "ba.keep": np.asarray(keep)})
 
 
+def record_tum_vga():
+    """The objects-on reference for chip_smoke.py: SlamSystem on the 40
+    rendered TUM-VGA frames of bench.py's scene (seed 3, 3 boxes of size
+    0.9, orbit_poses(40, step=0.01)), objects on, strict readback, every
+    frame passed with its detections. Writes tracked flags, keyframe
+    frames, the object census, the semantic-constraint count, the ATE,
+    per-frame and final poses and the inputs' checksums."""
+    import time
+    cfg = SlamConfig.tum_rgbd().replace(
+        tracking=TrackingConfig(pipelined_readback=False))
+    scene = SyntheticScene.make(cfg, seed=3, n_objects=3)
+    for b in scene.boxes:
+        b["size"] = 0.9
+    poses = orbit_poses(TUM_VGA_FRAMES, step=0.01)
+    sys_ = SlamSystem(cfg, enable_objects=True)
+    t0 = time.perf_counter()
+    tcw, oks, est, gt, gray_sum, n_det = [], [], [], [], [], []
+    for i, T in enumerate(poses):
+        gray, depth, rgb, sem = scene.render_rgbd(T)
+        gray = np.asarray(gray, np.float32)
+        depth = np.asarray(depth, np.float32)
+        rgb = np.asarray(rgb, np.float32)
+        sa = scene.sem_arrays(sem, cfg.semantic.max_instances)
+        gray_sum.append(float(np.sum(gray, dtype=np.float64)))
+        n_det.append(int(np.sum(sa[4])))
+        f = sys_.track_rgbd(jnp.asarray(gray), jnp.asarray(depth),
+                            jnp.asarray(rgb), sa, timestamp=i / 30.0)
+        Tcw = np.asarray(f.Tcw)
+        tcw.append(Tcw)
+        oks.append(bool(f.pose_ok))
+        est.append(np.linalg.inv(Tcw)[:3, 3])
+        gt.append(np.linalg.inv(T)[:3, 3])
+        print(f"vga frame {i}: ok={oks[-1]} n_kf={int(sys_.map.n_kf)} "
+              f"n_obj={int(np.sum(np.asarray(sys_.map.obj_valid)))} "
+              f"sem={sys_.objects.semantic_constraints} "
+              f"t={time.perf_counter() - t0:.1f}s", flush=True)
+    seconds = time.perf_counter() - t0
+    traj = sys_.final_trajectory()
+    kf_valid = np.asarray(sys_.map.kf_valid)
+    labels = np.asarray(sys_.map.obj_label)[np.asarray(sys_.map.obj_valid)]
+    census_l, census_n = np.unique(labels, return_counts=True)
+    out = {
+        "tracked": np.asarray(oks),
+        "kf_frames": np.asarray(sys_.map.kf_frame_id)[kf_valid],
+        "census_labels": census_l.astype(np.int32),
+        "census_counts": census_n.astype(np.int32),
+        "semantic_constraints": np.int64(sys_.objects.semantic_constraints),
+        "ate": np.float64(ate_rmse(np.array(est), np.array(gt))),
+        "tcw": np.stack(tcw).astype(np.float32),
+        "final_tcw": np.stack([t[1] for t in traj]).astype(np.float32),
+        "n_points": np.int32(sys_.n_points),
+        "gray_sum": np.asarray(gray_sum),
+        "n_detections": np.asarray(n_det, np.int32),
+        "seconds": np.float64(seconds),
+    }
+    np.savez_compressed(OUT_TUM_VGA, **out)
+    print(f"wrote {OUT_TUM_VGA}: {os.path.getsize(OUT_TUM_VGA) / 1e3:.1f} kB;"
+          f" {sum(oks)}/{len(oks)} tracked, KFs at {out['kf_frames']}, census "
+          f"{dict(zip(census_l.tolist(), census_n.tolist()))}, constraints "
+          f"{out['semantic_constraints']}, ATE {out['ate']:.6f} m, "
+          f"{seconds:.1f} s on the CPU (compiles included)", flush=True)
+
+
 def main():
-    out = {}
-    record_local_ba(out)
-    record_system(out)
-    np.savez_compressed(OUT, **out)
-    print(f"wrote {OUT}: {os.path.getsize(OUT) / 1e6:.2f} MB, "
-          f"{len(out)} arrays", flush=True)
+    parts = sys.argv[1:] or ["slice1", "objects", "tum_vga"]
+    if "slice1" in parts:
+        out = {}
+        record_local_ba(out)
+        record_system(out)
+        np.savez_compressed(OUT, **out)
+        print(f"wrote {OUT}: {os.path.getsize(OUT) / 1e6:.2f} MB, "
+              f"{len(out)} arrays", flush=True)
+    if "objects" in parts:
+        out = {}
+        record_objects(out)
+        np.savez_compressed(OUT_OBJECTS, **out)
+        print(f"wrote {OUT_OBJECTS}: "
+              f"{os.path.getsize(OUT_OBJECTS) / 1e6:.2f} MB, "
+              f"{len(out)} arrays", flush=True)
+    if "tum_vga" in parts:
+        record_tum_vga()
 
 
 if __name__ == "__main__":
