@@ -6,10 +6,12 @@ same path. It imports ``torch`` and ``numpy`` and never JAX or anything of
 the reference package. Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``; without a card they raise.
 
-Slice 1 ports the RGB-D tracking and local-mapping path with objects off:
-ORB extraction (its patch extraction is a CUDA kernel, ops/patch.py),
-tracking, keyframe insertion, local mapping with local BA, and the ATE
-readout. ROADMAP.md lists what later slices port.
+It covers the RGB-D main path: ORB extraction (its describe step is one
+CUDA kernel launch per frame, ops/describe.py), tracking, keyframe
+insertion, local mapping with local BA, the object layer, the single-blob
+ingestion, the one-frame-lagged readback, the staged path with
+relocalization, and the TUM tail (loaders, PNG codec, trajectory
+writers, ATE / RPE). ROADMAP.md lists what later slices port.
 """
 
 __version__ = "0.1.0"

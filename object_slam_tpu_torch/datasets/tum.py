@@ -1,0 +1,86 @@
+"""TUM RGB-D dataset loader.
+
+A numpy copy of object_slam_tpu/datasets/tum.py: ``associate.py``-style
+rgb/depth pairing by timestamp (rgbd_tum.cc:33-76 reads the association),
+the ground truth, and the per-frame YOLACT semantic directory
+(Semantic.cc:57). Images are decoded by datasets/png.py; the frame arrays
+stay in their compact transfer types (u8 rgb, raw u16 depth), which the
+frame builder converts on the device.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import List, Tuple
+
+import numpy as np
+
+from object_slam_tpu_torch.datasets.png import read_png
+from object_slam_tpu_torch.eval.ate import associate_timestamps
+from object_slam_tpu_torch.semantic import loader as sem_loader
+
+
+@dataclass
+class TumFrame:
+    timestamp: float
+    rgb_path: str
+    depth_path: str
+
+
+def read_file_list(path: str) -> List[Tuple[float, str]]:
+    out = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith('#'):
+                continue
+            parts = line.split()
+            out.append((float(parts[0]), parts[1]))
+    return out
+
+
+def load_sequence(seq_dir: str, max_dt: float = 0.02) -> List[TumFrame]:
+    rgb = read_file_list(os.path.join(seq_dir, 'rgb.txt'))
+    depth = read_file_list(os.path.join(seq_dir, 'depth.txt'))
+    pairs = associate_timestamps([t for t, _ in rgb], [t for t, _ in depth],
+                                 max_dt)
+    return [TumFrame(timestamp=rgb[ia][0],
+                     rgb_path=os.path.join(seq_dir, rgb[ia][1]),
+                     depth_path=os.path.join(seq_dir, depth[ib][1]))
+            for ia, ib in pairs]
+
+
+def load_frame_raw(frame: TumFrame):
+    """(rgb [H, W, 3] uint8, depth [H, W] uint16 raw) of one frame; a gray
+    image becomes three equal channels."""
+    rgb = read_png(frame.rgb_path)
+    if rgb.ndim == 2:
+        rgb = np.stack([rgb] * 3, -1)
+    depth = read_png(frame.depth_path)
+    if depth.dtype != np.uint16:
+        raise ValueError(f"{frame.depth_path}: depth must be 16-bit gray")
+    return rgb[..., :3], depth
+
+
+def load_groundtruth(seq_dir: str):
+    """groundtruth.txt -> (timestamps [N], positions [N, 3], quats [N, 4])."""
+    ts, pos, quat = [], [], []
+    with open(os.path.join(seq_dir, 'groundtruth.txt')) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith('#'):
+                continue
+            v = [float(x) for x in line.split()]
+            ts.append(v[0])
+            pos.append(v[1:4])
+            quat.append(v[4:8])
+    return np.array(ts), np.array(pos), np.array(quat)
+
+
+def load_semantics(semantic_dir: str, timestamp: float, cfg):
+    dets = sem_loader.read_semantic_dir(
+        semantic_dir, sem_loader.tum_frame_key(timestamp),
+        cfg.semantic.min_confidence, cfg.semantic.valid_labels_tum)
+    return sem_loader.detections_to_arrays(
+        dets, cfg.semantic.max_instances, cfg.camera.height, cfg.camera.width)

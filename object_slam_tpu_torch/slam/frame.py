@@ -4,8 +4,12 @@ and the frame's Object2D slab.
 Counterpart of object_slam_tpu/slam/frame.py for RGB-D: frames with a
 valid detection take ``_build_rgbd`` (masks travel bit-packed and unpack
 on the device, then ``build_object2ds``), the others the object-free
-``_build_rgbd_noobj``, as the reference dispatches. The stereo, mono and
-single-blob builders wait for later slices.
+``_build_rgbd_noobj``, as the reference dispatches. The single-blob
+ingestion packs a frame's device-bound arrays into one uint8 blob on the
+host (``pack_frame_blob``, the reference's byte layout), moves it with one
+copy from pinned memory (``upload_blob``) and reinterprets its slices on
+the device (``_unpack_blob``). The stereo and mono builders wait for later
+slices.
 """
 
 from __future__ import annotations
@@ -45,6 +49,16 @@ class FrameData(NamedTuple):
 
 
 _LUMA = (0.299, 0.587, 0.114)     # ITU-R BT.601, the cvtColor weights
+
+
+def _reinterpret(u8, dtype):
+    """A 1-D uint8 slice's bytes as ``dtype`` (the reference's
+    bitcast_convert_type). ``view`` needs the slice to start on a multiple
+    of the element size; a slice that does not is copied first."""
+    size = torch.empty((), dtype=dtype).element_size()
+    if u8.storage_offset() % size:
+        u8 = u8.clone()
+    return u8.view(dtype)
 
 
 def _luma(rgb_f32):
@@ -114,6 +128,83 @@ class FrameBuilder:
                                              torch.uint8):
             return tuple(sem_arrays)
         return (o2d_mod.pack_mask_bits(masks),) + tuple(sem_arrays[1:])
+
+    # ------------------------------------------------------------------
+    # single-transfer ingestion: every per-frame array in ONE uint8 blob
+    # ------------------------------------------------------------------
+    def pack_frame_blob(self, depth16, rgb8, sem_arrays):
+        """Host: concatenate the frame's device-bound arrays (u16 depth, u8
+        rgb, bit-packed masks, labels / probs / bboxes, little-endian) into
+        one uint8 blob, byte for byte the reference's layout. Returns (blob
+        u8[*], inst_valid host bool[I] or None); inst_valid stays on the
+        host for the object-free dispatch."""
+        parts = [np.ascontiguousarray(depth16, dtype='<u2').tobytes(),
+                 np.ascontiguousarray(rgb8, dtype=np.uint8).tobytes()]
+        if sem_arrays is None:
+            return np.frombuffer(b"".join(parts), np.uint8), None
+        masks, labels, probs, bboxes, valid = self.pack_sem_arrays(sem_arrays)
+        parts += [np.ascontiguousarray(masks, dtype=np.uint8).tobytes(),
+                  np.ascontiguousarray(labels, dtype='<i4').tobytes(),
+                  np.ascontiguousarray(probs, dtype='<f4').tobytes(),
+                  np.ascontiguousarray(bboxes, dtype='<f4').tobytes()]
+        return np.frombuffer(b"".join(parts), np.uint8), np.asarray(valid)
+
+    def blob_bytes(self, with_sem: bool) -> int:
+        H, W = self.cfg.camera.height, self.cfg.camera.width
+        I = self.cfg.semantic.max_instances
+        n = H * W * 5
+        return n + I * (H * ((W + 7) // 8) + 24) if with_sem else n
+
+    def upload_blob(self, blob):
+        """A host blob on the builder's device: one copy, from pinned memory
+        and non-blocking on the card (the caching host allocator keeps the
+        pinned block until the copy has run). A tensor already on the
+        device passes through."""
+        if torch.is_tensor(blob):
+            return blob.to(self.device)
+        blob = np.asarray(blob, dtype=np.uint8).reshape(-1)
+        host = torch.empty(blob.shape, dtype=torch.uint8,
+                           pin_memory=self.device.type == "cuda")
+        host.numpy()[:] = blob
+        return host.to(self.device, non_blocking=True)
+
+    def build_rgbd_blob(self, blob, inst_valid, timestamp):
+        """The single-transfer RGB-D build: the device-side unpack of
+        pack_frame_blob's layout, then the standard builds, dispatched on
+        the host's inst_valid as build_rgbd dispatches."""
+        with_sem = inst_valid is not None and bool(np.any(inst_valid))
+        size = blob.numel() if torch.is_tensor(blob) else np.asarray(blob).size
+        if size != self.blob_bytes(inst_valid is not None):
+            raise ValueError(f"blob of {size} bytes; this geometry packs "
+                             f"{self.blob_bytes(inst_valid is not None)}")
+        d16, rgb8, *sem = self._unpack_blob(self.upload_blob(blob), with_sem)
+        if not with_sem:
+            return self._build_rgbd_noobj(None, d16, timestamp, rgb8)
+        return self._build_rgbd(None, d16, rgb8, *sem, inst_valid, timestamp)
+
+    def _unpack_blob(self, blob, with_sem: bool):
+        """Reinterpret the blob's slices: depth as raw u16 widened to int32
+        (so _metric_depth scales it), rgb and masks as uint8, labels int32,
+        probs and bboxes f32."""
+        cfg = self.cfg
+        H, W = cfg.camera.height, cfg.camera.width
+        I = cfg.semantic.max_instances
+        o0 = H * W * 2
+        d16 = _reinterpret(blob[:o0], torch.int16).reshape(H, W) \
+            .to(torch.int32) & 0xFFFF
+        o1 = o0 + H * W * 3
+        rgb8 = blob[o0:o1].reshape(H, W, 3)
+        if not with_sem:
+            return d16, rgb8
+        o2 = o1 + I * H * ((W + 7) // 8)
+        masks = blob[o1:o2].reshape(I, H, (W + 7) // 8)
+        o3 = o2 + I * 4
+        labels = _reinterpret(blob[o2:o3], torch.int32)
+        o4 = o3 + I * 4
+        probs = _reinterpret(blob[o3:o4], torch.float32)
+        bboxes = _reinterpret(blob[o4:o4 + I * 16], torch.float32) \
+            .reshape(I, 4)
+        return d16, rgb8, masks, labels, probs, bboxes
 
     def _keypoints(self, gray, depth_img):
         """ORB keypoints, undistorted pixels and the RGB-D depth lookup."""

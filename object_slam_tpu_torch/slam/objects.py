@@ -14,13 +14,18 @@ Counterpart of object_slam_tpu/slam/objects.py, the fused path's stages:
     answered by the frame's feature-transform maps, 4 rounds x 10 steps
     with fixed counts and no read back to the host.
 
+The staged path (a LOST frame's, or ``tracking.fused=False``) runs the
+local-map search and the same optimizer through
+``track_local_map_semantic``.
+
 The reference's scatters keep their semantics through ops/scatter.py
 (duplicate indices: last write wins; out-of-range indices dropped;
-``lax.top_k`` ties by the lower index). The staged host path
-(``track_local_map_semantic``) is not ported.
+``lax.top_k`` ties by the lower index).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -33,6 +38,7 @@ from object_slam_tpu_torch.ops.scatter import scatter_or, scatter_set, topk
 from object_slam_tpu_torch.semantic.hsv import cosine_similarity
 from object_slam_tpu_torch.semantic.object2d import bbox_iou_2d
 from object_slam_tpu_torch.slam.frame import FrameData
+from object_slam_tpu_torch.slam import tracking as trk
 from object_slam_tpu_torch.slam.map_state import MapState, N_LABEL_SLOTS
 from object_slam_tpu_torch.slam.tracking import TrackResult
 from object_slam_tpu_torch.solvers.pose_opt import (PoseObs, edge_chi2,
@@ -222,6 +228,9 @@ class ObjectEngine:
         scale = cfg.orb.scale_factor
         self.inv_sigma2_lvl = torch.tensor(
             [1.0 / scale ** (2 * l) for l in range(cfg.orb.n_levels)],
+            dtype=torch.float32, device=device)
+        self.scale_factors = torch.tensor(
+            [scale ** l for l in range(cfg.orb.n_levels)],
             dtype=torch.float32, device=device)
 
     # -- association ----------------------------------------------------
@@ -455,9 +464,21 @@ class ObjectEngine:
     # -- semantically constrained pose optimization ---------------------
     def track_local_map_semantic(self, m: MapState, frame: FrameData,
                                  tr: TrackResult):
-        raise NotImplementedError(
-            "the staged semantic local-map path is not ported yet "
-            "(ROADMAP.md, queue 1, item 4: the staged tracking path)")
+        """The staged path's local-map tracking with the object edges in
+        the final pose solve (TrackLocalMap -> PoseOptimization2,
+        Tracking.cc:1011-1022): the local-map search and first solve at
+        the reference's default windows, then semopt_impl. Returns
+        (TrackResult, map with the search's visible / found counters, n_sem
+        device scalar, the pre-refinement pose)."""
+        o = self.cfg.orb
+        res, m, _ = trk.track_local_map(
+            self.K, m, frame, tr, self.scale_factors, self.inv_sigma2_lvl,
+            math.log(o.scale_factor), local_cap=self.cfg.caps.local_search_pts)
+        Tcw, kp_pt, inl, n_sem = self.semopt_impl(m, frame, res)
+        return TrackResult(Tcw=Tcw, kp_pt=kp_pt, inlier=inl,
+                           n_matches=res.n_matches,
+                           n_inliers=torch.sum((kp_pt >= 0).to(torch.int32))
+                           ), m, n_sem, res.Tcw
 
     def semopt_impl(self, m: MapState, frame: FrameData, res: TrackResult):
         """PoseOptimization2: standard edges plus M_joint / M_semantic

@@ -1,20 +1,24 @@
 """System facade: the per-frame orchestration loop (RGB-D).
 
-Counterpart of object_slam_tpu/slam/system.py's strict state machine:
-``track_rgbd`` builds the frame; the first frame with enough depth
-initializes the map (``_stereo_init_impl``, then the object update); every
-later frame runs the fused tracking chain, with the object stages as its
-hooks when objects are on, and is resolved at once (``_track_fused``
-followed by ``_resolve_one``: the reference's ``pipelined_readback=False``
-behaviour), inserting keyframes and running the local-mapping pass
-synchronously.
+Counterpart of object_slam_tpu/slam/system.py. ``track_rgbd`` builds the
+frame from arrays, ``track_rgbd_blob`` from one uint8 blob
+(``FrameBuilder.pack_frame_blob``). The first frame with enough depth
+initializes the map (``_stereo_init_impl``, then the object update). A
+frame tracked while the state is OK runs the fused tracking chain, with
+the object stages as its hooks when objects are on (``_track_fused``); its
+packed result is read back one frame late by default
+(``tracking.pipelined_readback``): a non-blocking copy into pinned memory
+at dispatch, resolved (``_resolve_one``: trajectory record, state machine,
+keyframe insertion, the local-mapping pass, relocalization) after the
+next frame's dispatch. ``pipelined_readback=False`` resolves every frame
+at once. A LOST frame, and every frame with ``tracking.fused=False``,
+takes the staged path (``_track_staged``), whose failure branch
+relocalizes against the whole map (``_relocalize``: brute match, PnP
+RANSAC).
 
 Not in this slice, and raising ``NotImplementedError`` with the ROADMAP
-item that ports them: loop closing, async mapping, stereo and mono
-sensors, the staged (non-fused) path, the pipelined readback, the
-single-blob entry and relocalization. Where the reference would
-relocalize, the port records the frame LOST and counts it in
-``n_reloc_skipped``.
+item that ports them: loop closing and the vocabulary relocalization,
+async mapping, stereo and mono sensors, localization mode.
 
 State machine (Tracking.h:99-105): NOT_INITIALIZED -> OK <-> LOST.
 """
@@ -32,14 +36,19 @@ import torch
 
 from object_slam_tpu_torch.config import SlamConfig
 from object_slam_tpu_torch.device import resolve_device
+from object_slam_tpu_torch.features import matching
+from object_slam_tpu_torch.geometry import se3
 from object_slam_tpu_torch.ops.scatter import scatter_set, topk
 from object_slam_tpu_torch.slam import local_mapping, map_ops
 from object_slam_tpu_torch.slam import tracking as trk
 from object_slam_tpu_torch.slam.frame import FrameBuilder, FrameData
 from object_slam_tpu_torch.slam.map_state import init_map
 from object_slam_tpu_torch.slam.objects import ObjectEngine
+from object_slam_tpu_torch.solvers import ransac
+from object_slam_tpu_torch.solvers.epnp import pnp_ransac_sets
 
 NOT_INITIALIZED, OK, LOST = 0, 1, 2
+STATE_NAMES = {NOT_INITIALIZED: "NOT_INITIALIZED", OK: "OK", LOST: "LOST"}
 
 
 def _not_in_slice(what: str, item: str):
@@ -62,7 +71,7 @@ class SlamSystem:
                  enable_mapping: bool = True,
                  enable_loop: bool = False,
                  async_mapping: bool = False,
-                 device=None, profile: bool = False):
+                 device=None, profile: bool = False, metrics=None):
         self.cfg = cfg or SlamConfig()
         cfg = self.cfg
         if enable_loop:
@@ -76,12 +85,6 @@ class SlamSystem:
         if cfg.sensor != "rgbd":
             raise _not_in_slice(f"sensor={cfg.sensor!r}",
                                 "stereo/KITTI and mono")
-        if not cfg.tracking.fused:
-            raise _not_in_slice("tracking.fused=False (the staged path)",
-                                "the staged tracking path")
-        if cfg.tracking.pipelined_readback:
-            raise _not_in_slice("tracking.pipelined_readback=True",
-                                "the pipelined readback")
         self.device = resolve_device(device)
         self.builder = FrameBuilder(cfg, device=self.device)
         self.K = self.builder.K
@@ -100,10 +103,12 @@ class SlamSystem:
                 self._timed("semopt", self.objects.semopt_impl)
                 if cfg.objects.semopt_enabled else None,
                 self._timed("object_update", self.objects.update_impl))
+        # structured per-frame metrics (utils/metrics.MetricsStream or None)
+        self.metrics = metrics
 
         self.state = NOT_INITIALIZED
         self.last_frame: Optional[FrameData] = None
-        self.velocity = torch.eye(4, dtype=torch.float32, device=self.device)
+        self.velocity = self._eye()
         self.last_kf_id = -1
         self.frames_since_kf = 0
         self.frame_id = 0
@@ -111,11 +116,17 @@ class SlamSystem:
         self._kf_inliers = 0
         self._last_n_inliers = -1
         self._host_ts = 0.0
-        # frames the reference would have handed to relocalization
-        self.n_reloc_skipped = 0
+        self._fused_pending = None   # the lagged fused readback
+        # the RANSAC sampler's stream (the reference's PRNGKey(0))
+        self.rng = torch.Generator(device=self.device)
+        self.rng.manual_seed(0)
+        self.n_relocalized = 0
         # per-stage host time (ms), synchronized per span when profiling
         self.profile = profile
         self.stage_ms: dict = {}
+
+    def _eye(self):
+        return torch.eye(4, dtype=torch.float32, device=self.device)
 
     @contextmanager
     def _span(self, name: str):
@@ -151,31 +162,61 @@ class SlamSystem:
             frame = self.builder.build_rgbd(gray, depth, rgb, sem_arrays,
                                             timestamp)
         self._host_ts = float(timestamp)
-        return self._track(frame)
+        return self._track_and_emit(frame)
 
     def track_rgbd_blob(self, blob, inst_valid, timestamp=0.0):
-        raise _not_in_slice("track_rgbd_blob", "the blob ingestion")
+        """Single-transfer RGB-D entry: blob from
+        FrameBuilder.pack_frame_blob (host numpy, moved by one copy from
+        pinned memory, or a uint8 tensor already on the device);
+        inst_valid the host's detection flags (None: no detections)."""
+        with self._span("frame_build"):
+            frame = self.builder.build_rgbd_blob(blob, inst_valid, timestamp)
+        self._host_ts = float(timestamp)
+        return self._track_and_emit(frame)
+
+    def _track_and_emit(self, frame: FrameData):
+        """_track, then one metrics record of host state the loop already
+        holds (no device read)."""
+        if self.metrics is None:
+            return self._track(frame)
+        prev_kf = self.last_kf_id
+        fid = self.frame_id
+        t0 = time.perf_counter()
+        out = self._track(frame)
+        self.metrics.emit(
+            frame=fid, ts=self._host_ts, state=STATE_NAMES[self.state],
+            track_ms=round((time.perf_counter() - t0) * 1e3, 3),
+            n_inliers=int(self._last_n_inliers),
+            kf_inserted=self.last_kf_id != prev_kf,
+            ref_kf=self.last_kf_id,
+            frames_since_kf=self.frames_since_kf)
+        return out
 
     # ------------------------------------------------------------------
     def _track(self, frame: FrameData):
-        if self.state == OK:
+        fused = self.cfg.tracking.fused
+        if self.state == OK and fused:
+            # dispatch BEFORE resolving the previous frame's lagged readback;
+            # the state is one frame stale (a pending LOST costs one wasted
+            # dispatch)
             return self._track_fused(frame)
-        if self.state == LOST:
-            # the reference tracks a LOST frame through the staged path,
-            # whose failure branch relocalizes (system.py:556-567)
-            self.n_reloc_skipped += 1
-            last = self.last_frame
-            self._record(frame._replace(Tcw=last.Tcw), False)
-            self.last_frame = frame._replace(Tcw=last.Tcw)
-            self.frame_id += 1
-            return self.last_frame
+        # the other paths fold in the lagged result first, so the state
+        # machine is current
+        self._resolve_fused_pending()
+        if self.state == NOT_INITIALIZED:
+            return self._initialize(frame)
+        if self.state == OK and fused:
+            return self._track_fused(frame)
+        return self._track_staged(frame)
+
+    def _initialize(self, frame: FrameData):
         n_depth = int(torch.sum((frame.depth > 0) & frame.valid))
         if n_depth > 100:
             with self._span("insert_keyframe"):
                 self.map, kf_id, kp_pt = self._stereo_init_impl(
                     self.map, frame, self.frame_id)
             frame = frame._replace(
-                kp_pt=kp_pt, Tcw=torch.eye(4, device=self.device),
+                kp_pt=kp_pt, Tcw=self._eye(),
                 pose_ok=torch.tensor(True, device=self.device))
             if self.objects is not None:
                 with self._span("object_update"):
@@ -194,8 +235,8 @@ class SlamSystem:
     def _stereo_init_impl(self, m, frame, frame_id):
         create = frame.valid & (frame.depth > 0)
         m, kf_id = map_ops.insert_keyframe(
-            self.K, m, frame, torch.eye(4, device=self.device),
-            self.scale_factors, create, frame_id=frame_id)
+            self.K, m, frame, self._eye(), self.scale_factors, create,
+            frame_id=frame_id)
         return m, kf_id, m.kf_kp_pt[kf_id]
 
     def _insert_impl(self, m, frame, Tcw, kp_pt, close_mask, frame_id):
@@ -230,8 +271,218 @@ class SlamSystem:
                 self.cfg, ba_iters=ba_iters)
         return run
 
+    def _insert_and_map(self, frame, Tcw, kp_pt, spawn, frame_id, n_inl):
+        """Insert a keyframe and run the local-mapping pass on it. Returns
+        the frame with the keyframe's point bindings adopted."""
+        with self._span("insert_keyframe"):
+            self.map, kf_id = self._insert_impl(self.map, frame, Tcw, kp_pt,
+                                                spawn, frame_id)
+        kf_id = int(kf_id)
+        frame = frame._replace(kp_pt=self.map.kf_kp_pt[kf_id])
+        kf_gap = self.frames_since_kf
+        self.last_kf_id = kf_id
+        self.frames_since_kf = 0
+        self._kf_inliers = n_inl
+        with self._span("local_mapping"):
+            self.map = self._mapping_fn(kf_gap)(self.map, kf_id)
+        return frame
+
     # ------------------------------------------------------------------
+    # the staged path (Tracking::Track's stage sequence, host-gated)
+    # ------------------------------------------------------------------
+    def _kf_policy_impl(self, m, depth, kp_pt, valid, last_kf, min_obs):
+        """The keyframe policy's three counts in one [3] int32 tensor."""
+        cam = self.cfg.camera
+        close = (depth > 0) & (depth < cam.th_depth * cam.baseline)
+        tracked = kp_pt >= 0
+        P = m.pt_xyz.shape[0]
+        ref_pt = m.kf_kp_pt[last_kf]
+        rpc = torch.clamp(ref_pt, 0, P - 1).long()
+        return torch.stack([
+            torch.sum(close & tracked & valid),
+            torch.sum(close & ~tracked & valid),
+            torch.sum((ref_pt >= 0) & (m.pt_n_obs[rpc] >= min_obs)
+                      & m.pt_valid[rpc])]).to(torch.int32)
+
+    def _counts(self, *xs):
+        """Several device scalars read in one transfer."""
+        return [int(v) for v in torch.stack(
+            [torch.as_tensor(x, device=self.device).to(torch.int64)
+             for x in xs]).cpu()]
+
+    def _track_staged(self, frame: FrameData):
+        cfg = self.cfg
+        last = self.last_frame
+        ref_id = max(self.last_kf_id, 0)
+        with self._span("track_staged"):
+            T_pred = self.velocity @ last.Tcw
+
+            def motion(radius):
+                tr = trk.track_motion_model(
+                    self.K, self.map, frame, last.uv, last.kp_pt,
+                    last.level, last.valid, T_pred, self.scale_factors,
+                    self.inv_sigma2, radius_th=radius, T_last=last.Tcw,
+                    last_angle=last.angle)
+                return (tr,) + tuple(self._counts(tr.n_matches,
+                                                  tr.n_inliers))
+
+            tr, nm, ni = motion(cfg.tracking.motion_model_radius)
+            if nm < 20:
+                # wide-window retry (Tracking.cc:967-975 doubles th)
+                tr, nm, ni = motion(2.0 * cfg.tracking.motion_model_radius)
+            tr_ni = ni
+            if nm < 20 or ni < 10:
+                # a thin motion-model consensus is refused before it is
+                # trusted (Tracking.cc:977)
+                tr_kf = trk.track_reference_kf(self.K, self.map, frame,
+                                               ref_id, last.Tcw,
+                                               self.inv_sigma2)
+                kf_ni = int(tr_kf.n_inliers)
+                if kf_ni > tr_ni:
+                    tr, tr_ni = tr_kf, kf_ni
+            if tr_ni < 10:
+                tr = self._relocalize(frame)
+                if tr is None:
+                    self.state = LOST
+                    lost = frame._replace(Tcw=last.Tcw)
+                    self._record(lost, False)
+                    self.last_frame = lost
+                    self.frame_id += 1
+                    return lost
+                tr_ni = int(tr.n_inliers)
+
+            # object association before the local map (Tracking.cc:453)
+            if self.objects is not None:
+                with self._span("object_assoc"):
+                    frame = self.objects.associate(
+                        self.map, frame._replace(Tcw=tr.Tcw), last)
+
+            if self.objects is not None and bool(torch.any(frame.obj3d >= 0)):
+                with self._span("semopt"):
+                    tr2, self.map, n_sem, _ = \
+                        self.objects.track_local_map_semantic(self.map,
+                                                              frame, tr)
+                n_inl, n_sem = self._counts(tr2.n_inliers, n_sem)
+                self.objects.semantic_constraints += n_sem
+            else:
+                tr2, self.map, _ = self._local(frame, tr, last.Tcw)
+                n_inl = int(tr2.n_inliers)
+            ok = n_inl >= 30 or (n_inl >= 10 and self.frame_id < 5)
+            if not ok and tr_ni >= 10:
+                # the reference-KF rung before declaring LOST
+                # (Tracking.cc:364-379)
+                tr_kf = trk.track_reference_kf(self.K, self.map, frame,
+                                               ref_id, last.Tcw,
+                                               self.inv_sigma2)
+                if int(tr_kf.n_inliers) >= 10:
+                    tr2_kf, map_kf, _ = self._local(frame, tr_kf, last.Tcw)
+                    n_kf = int(tr2_kf.n_inliers)
+                    if n_kf > n_inl:
+                        tr2, self.map, n_inl = tr2_kf, map_kf, n_kf
+                        ok = n_inl >= 30 or (n_inl >= 10
+                                             and self.frame_id < 5)
+            self._last_n_inliers = n_inl
+            self.state = OK if ok else LOST
+            frame = frame._replace(Tcw=tr2.Tcw, kp_pt=tr2.kp_pt,
+                                   pose_ok=torch.tensor(ok,
+                                                        device=self.device))
+        if self.objects is not None and ok:
+            with self._span("object_update"):
+                self.map, frame = self.objects.update(self.map, frame)
+        if ok:
+            self.velocity = tr2.Tcw @ se3.inverse(last.Tcw)
+            n_close_trk, n_close_untrk, ref_matches = self._counts(
+                *self._kf_policy_impl(
+                    self.map, frame.depth, frame.kp_pt, frame.valid, ref_id,
+                    3 if int(self.map.n_kf) > 2 else 1))
+            if trk.need_new_keyframe(
+                    n_inl, ref_matches, n_close_trk, n_close_untrk,
+                    self.frames_since_kf,
+                    max_frames=cfg.tracking.max_frames_between_kf,
+                    last_kf_inliers=self._kf_inliers,
+                    min_gap=cfg.tracking.min_frames_between_kf):
+                close = (frame.depth > 0) & (
+                    frame.depth < cfg.camera.th_depth * cfg.camera.baseline)
+                spawn = close & (frame.kp_pt < 0) & frame.valid
+                frame = self._insert_and_map(frame, tr2.Tcw, tr2.kp_pt,
+                                             spawn, self.frame_id, n_inl)
+            else:
+                self.frames_since_kf += 1
+                self._kf_inliers = max(self._kf_inliers, n_inl)
+        self._record(frame, ok)
+        self.last_frame = frame
+        self.frame_id += 1
+        return frame
+
+    def _local(self, frame, tr, T_last):
+        cfg = self.cfg
+        return trk.track_local_map(
+            self.K, self.map, frame, tr, self.scale_factors, self.inv_sigma2,
+            self.log_scale, T_last=T_last,
+            local_cap=cfg.caps.local_search_pts,
+            radius_mult=cfg.tracking.local_radius_mult,
+            level_window=cfg.tracking.local_level_window)
+
+    # ------------------------------------------------------------------
+    # relocalization (no vocabulary: the frame against the whole map)
+    # ------------------------------------------------------------------
+    def _minimal_sets(self, valid, n_trials: int = 256, k: int = 6):
+        """[T, k] RANSAC index sets over the frame's keypoints, drawn from
+        this system's generator."""
+        return ransac.sample_minimal_sets(self.rng, valid.shape[0], valid,
+                                          n_trials, k)
+
+    def _relocalize(self, frame):
+        """Relocalization without a vocabulary (Tracking.cc:1606-1767,
+        reduced): one brute match of the frame's descriptors against every
+        valid map point, PnP RANSAC on the matches, accepted with >= 30
+        inliers and a finite, sane pose."""
+        m = self.map
+        P = m.pt_xyz.shape[0]
+        with self._span("relocalize"):
+            midx, mok = matching.brute_match(
+                frame.desc, frame.valid, m.pt_desc, m.pt_valid, th_dist=50,
+                nn_ratio=0.75, check_rotation=False)
+            if int(torch.sum(mok)) < 30:
+                return None
+            pw = m.pt_xyz[torch.clamp(midx, 0, P - 1).long()]
+            res = pnp_ransac_sets(
+                self._minimal_sets(mok), self.K, pw, frame.uv, mok,
+                min_inliers=max(self.cfg.solver.epnp_min_inliers, 25))
+            ok, n_inl, t_norm = torch.stack([
+                res.ok.to(torch.float32), res.n_inliers.to(torch.float32),
+                torch.linalg.norm(res.Tcw[:3, 3])]).cpu().tolist()
+        # a relocalization is trusted only with a strong consensus and a
+        # sane pose (Tracking.cc:1752-1764)
+        if not ok or n_inl < 30 or not math.isfinite(t_norm) or t_norm > 1e3:
+            return None
+        self.n_relocalized += 1
+        return trk.TrackResult(
+            Tcw=res.Tcw, kp_pt=torch.where(res.inliers, midx,
+                                           torch.full_like(midx, -1)),
+            inlier=res.inliers, n_matches=torch.sum(mok.to(torch.int32)),
+            n_inliers=res.n_inliers)
+
+    # ------------------------------------------------------------------
+    # the fused path and its lagged readback
+    # ------------------------------------------------------------------
+    def _readback(self, packed):
+        """Start the packed vector's device->host copy: a non-blocking copy
+        into a fresh pinned buffer (one per frame in flight) and an event
+        that marks its end. On the CPU the tensor is already on the host."""
+        if self.device.type != "cuda":
+            return packed, None
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return host, done
+
     def _track_fused(self, frame: FrameData):
+        """The whole tracking chain in one call, its host bookkeeping for
+        this frame deferred to the next call (pipelined readback) or done
+        at once. In pipelined mode the returned frame's pose_ok is a device
+        scalar and its bookkeeping is still pending."""
         cfg = self.cfg
         last = self.last_frame
         with self._span("track_fused"):
@@ -250,22 +501,50 @@ class SlamSystem:
                 obj_hooks=self._obj_hooks)
         frame = frame._replace(Tcw=tr2.Tcw, kp_pt=tr2.kp_pt, pose_ok=okd,
                                obj3d=obj3d)
+        # velocity advances provisionally as a device output; a LOST or
+        # relocalized outcome resets it during resolve
         self.velocity = vel
-        pend = {"packed": packed, "frame": frame, "ts": self._host_ts,
-                "fid": self.frame_id, "ref": max(self.last_kf_id, 0)}
+        prev = self._fused_pending
+        # ref: the keyframe the device composed Tcr against; a keyframe
+        # inserted by the previous frame's resolve must not change it
+        self._fused_pending = {"packed": self._readback(packed),
+                               "frame": frame, "ts": self._host_ts,
+                               "fid": self.frame_id,
+                               "ref": max(self.last_kf_id, 0)}
         self.last_frame = frame
         self.frame_id += 1
-        self._resolve_one(pend)
-        return self.last_frame
+        # resolve the previous frame only after this frame's dispatch
+        if prev is not None:
+            self._resolve_one(prev, latest=False)
+        if not cfg.tracking.pipelined_readback:
+            self._resolve_fused_pending()
+            return self.last_frame
+        return frame
 
-    def _resolve_one(self, pend):
-        """Host bookkeeping for one fused step: trajectory record, state
-        machine, keyframe insertion + the local-mapping pass."""
+    def _resolve_fused_pending(self):
+        """Consume the newest fused dispatch's lagged result (strict
+        catch-up for the other paths, state queries and flushes)."""
+        pend = self._fused_pending
+        if pend is None:
+            return
+        self._fused_pending = None
+        self._resolve_one(pend, latest=True)
+
+    def _resolve_one(self, pend, latest: bool):
+        """Host bookkeeping for one fused dispatch: trajectory record,
+        state machine, keyframe insertion + the local-mapping pass,
+        relocalization. latest=False: a newer frame is already in flight,
+        so last_frame is not rolled back to this one."""
         cfg = self.cfg
         frame = pend["frame"]
-        p = pend["packed"].cpu().numpy()
-        Tcw_np = p[0:16].reshape(4, 4)
+        host, done = pend["packed"]
+        with self._span("resolve"):
+            if done is not None:
+                done.synchronize()
+            p = host.numpy()
+        Tcw_np = p[0:16].reshape(4, 4).copy()
         ok = p[48] > 0.5
+        # the min-gap gate applies here, where frames_since_kf is current
         need_soft = p[49] > 0.5
         need_hard = p[57] > 0.5
         need_kf = bool(need_hard) or (
@@ -277,41 +556,46 @@ class SlamSystem:
             # N_AllSemanticConstraintNum analogue, from the same readback
             self.objects.semantic_constraints += int(p[56])
 
+        relocalized = False
         if not ok and n_inl < 10:
-            self.n_reloc_skipped += 1
-            self.state = LOST
-            self.velocity = torch.eye(4, dtype=torch.float32,
-                                      device=self.device)
-            self._record_np(pend["ts"], Tcw_np, False)
-            self.last_frame = frame
-            return
+            tr_rel = self._relocalize(frame)
+            if tr_rel is None:
+                self.state = LOST
+                self.velocity = self._eye()
+                self._record_np(pend["ts"], Tcw_np, False)
+                if latest:
+                    self.last_frame = frame
+                return
+            frame = frame._replace(Tcw=tr_rel.Tcw, kp_pt=tr_rel.kp_pt)
+            Tcw_np = tr_rel.Tcw.cpu().numpy()
+            ok, need_kf, relocalized = True, False, True
+            self.velocity = self._eye()
+            n_inl = int(tr_rel.n_inliers)
 
         self.state = OK if ok else LOST
         if ok and need_kf:
             close = frame.valid & (frame.depth > 0) & (
                 frame.depth < cfg.camera.th_depth * cfg.camera.baseline)
             spawn = close & (frame.kp_pt < 0)
-            with self._span("insert_keyframe"):
-                self.map, kf_id = self._insert_impl(
-                    self.map, frame, frame.Tcw, frame.kp_pt, spawn,
-                    pend["fid"])
-            frame = frame._replace(kp_pt=self.map.kf_kp_pt[kf_id])
-            kf_gap = self.frames_since_kf
-            self.last_kf_id = int(kf_id)
-            self.frames_since_kf = 0
-            self._kf_inliers = n_inl
-            with self._span("local_mapping"):
-                self.map = self._mapping_fn(kf_gap)(self.map, int(kf_id))
+            frame = self._insert_and_map(frame, frame.Tcw, frame.kp_pt,
+                                         spawn, pend["fid"], n_inl)
             self._record_np(pend["ts"], Tcw_np, True)
         elif ok:
             self.frames_since_kf += 1
+            # the decay trigger anchors to the peak inlier count since the
+            # last insertion
             self._kf_inliers = max(self._kf_inliers, n_inl)
-            self._record_precomputed(pend["ts"], Tcw_np,
-                                     p[32:48].reshape(4, 4), True,
-                                     ref_kf=pend["ref"])
+            if relocalized:
+                # the packed Tcr belongs to the failed fused attempt
+                self._record_np(pend["ts"], Tcw_np, True)
+            else:
+                self._record_precomputed(pend["ts"], Tcw_np,
+                                         p[32:48].reshape(4, 4).copy(), True,
+                                         ref_kf=pend["ref"])
         else:
             self._record_np(pend["ts"], Tcw_np, False)
-        self.last_frame = frame
+        if latest:
+            self.last_frame = frame
 
     def _record_precomputed(self, timestamp, Tcw_np, Tcr_np, tracked,
                             ref_kf):
@@ -336,10 +620,19 @@ class SlamSystem:
             Tcr=Tcw @ np.linalg.inv(Tkw), tracked=tracked))
 
     # ------------------------------------------------------------------
+    # lifecycle (System.h:64-130)
+    # ------------------------------------------------------------------
+    def flush_mapping(self):
+        """Fold the lagged readback into the state (the Shutdown-time
+        join analogue); without it the last frame's bookkeeping and a
+        pending keyframe insertion would be dropped."""
+        self._resolve_fused_pending()
+
     def final_trajectory(self):
         """Recompose each frame pose from its reference KF's (BA-corrected)
         pose, hopping culled reference KFs through the frozen
         T_child_parent (System.cc:378-436)."""
+        self.flush_mapping()
         kf_pose = self.map.kf_pose.cpu().numpy()
         kf_valid = self.map.kf_valid.cpu().numpy()
         kf_parent = self.map.kf_parent.cpu().numpy()
@@ -357,10 +650,37 @@ class SlamSystem:
             out.append((rec.timestamp, Tcr @ kf_pose[ref], rec.tracked))
         return out
 
+    def reset(self):
+        """Clear map, trajectory and tracker state (System::Reset ->
+        Tracking::Reset, Tracking.cc:1769-1815)."""
+        self.map = init_map(self.cfg.caps, self.cfg.objects.history_capacity,
+                            device=self.device)
+        if self.objects is not None:
+            self.objects.semantic_constraints = 0
+        self.state = NOT_INITIALIZED
+        self.last_frame = None
+        self.velocity = self._eye()
+        self.last_kf_id = -1
+        self.frames_since_kf = 0
+        self.trajectory = []
+        self._fused_pending = None
+
+    def get_tracking_state(self) -> int:
+        """NOT_INITIALIZED=0 / OK=1 / LOST=2 (Tracking.h:99-105), after the
+        lagged readback is folded in."""
+        self._resolve_fused_pending()
+        return self.state
+
+    def shutdown(self):
+        """Flush the pending bookkeeping (there are no threads to join)."""
+        self.flush_mapping()
+
     @property
     def n_keyframes(self):
+        self._resolve_fused_pending()
         return int(self.map.n_kf)
 
     @property
     def n_points(self):
+        self._resolve_fused_pending()
         return int(torch.sum(self.map.pt_valid))

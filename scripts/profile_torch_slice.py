@@ -2,11 +2,20 @@
 
     python scripts/profile_torch_slice.py [--frames 24] [--window 8]
                                           [--objects-off]
+                                          [--blob {host,device}] [--strict]
 
 Runs SlamSystem.track_rgbd (TUM VGA, strict readback) on frames rendered
 like chip_smoke.py, objects on with the frames' detections (or objects
 off with ``--objects-off``), then traces the last ``--window`` frames
-with torch.profiler. Prints one JSON object: host ms per frame, the
+with torch.profiler. ``--blob`` runs bench.py's protocol instead: the
+default configuration (pipelined readback), the frames packed by
+pack_frame_blob into track_rgbd_blob, the numpy blob per frame (``host``,
+one pinned non-blocking copy each) or every blob staged on the card first
+(``device``); the trace window then ends with flush_mapping.
+``--strict`` keeps the strict readback in blob mode, for a comparison on
+the same frames.
+
+Prints one JSON object: host ms per frame, the
 device's busy share of that wall time (union of kernel intervals), kernel
 launches per frame, CUDA synchronizations per frame, the device time of
 the port's own kernels, the kernels and host ops that take the most time,
@@ -93,35 +102,50 @@ def main():
     ap.add_argument("--frames", type=int, default=24)
     ap.add_argument("--window", type=int, default=8)
     ap.add_argument("--objects-off", action="store_true")
+    ap.add_argument("--blob", choices=("host", "device"), default=None)
+    ap.add_argument("--strict", action="store_true")
     args = ap.parse_args()
 
     import torch
     from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
-    from chip_smoke import card_line, render, tum_cfg
+    from chip_smoke import card_line, render, to_blob, tum_cfg
+    from object_slam_tpu_torch.config import SlamConfig
     from object_slam_tpu_torch.slam.system import SlamSystem
 
     objects = not args.objects_off
     card = card_line()
     cfg = tum_cfg()
     poses, frames, sems = render(cfg, args.frames)
+    if args.blob and not args.strict:
+        cfg = SlamConfig.tum_rgbd()
     sys_ = SlamSystem(cfg, enable_objects=objects, device="cuda")
 
-    def step(i):
-        sys_.track_rgbd(*frames[i], sems[i] if objects else None,
-                        timestamp=i / 30.0)
+    if args.blob:
+        blobs = [to_blob(sys_.builder, cfg, d, rgb,
+                         sems[i] if objects else None)
+                 for i, (_, d, rgb) in enumerate(frames)]
+        if args.blob == "device":
+            blobs = [(torch.tensor(b, device="cuda"), iv) for b, iv in blobs]
+
+        def step(i):
+            sys_.track_rgbd_blob(*blobs[i], timestamp=i / 30.0)
+    else:
+        def step(i):
+            sys_.track_rgbd(*frames[i], sems[i] if objects else None,
+                            timestamp=i / 30.0)
 
     n_warm = args.frames - args.window
     for i in range(n_warm):
         step(i)
     torch.cuda.synchronize()
-    kf_before = sys_.n_keyframes
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=False) as prof:
         t0 = time.perf_counter()
         for i in range(n_warm, args.frames):
             step(i)
+        sys_.flush_mapping()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
@@ -139,8 +163,11 @@ def main():
     port = [k for k in ka if any(n in k.key for n in PORT_KERNELS)]
     w = args.window
     out = {
-        "card": card, "objects": objects, "frames_traced": w,
-        "keyframes_in_window": sys_.n_keyframes - kf_before,
+        "card": card, "objects": objects, "blob": args.blob,
+        "pipelined_readback": cfg.tracking.pipelined_readback,
+        "frames_traced": w,
+        "keyframes_in_window": int(torch.sum(
+            sys_.map.kf_valid & (sys_.map.kf_frame_id >= n_warm))),
         "host_ms_per_frame": wall_ms / w,
         "device_busy_ms_per_frame": busy_ms(dev) / w,
         "device_busy_share": busy_ms(dev) / wall_ms,

@@ -1,0 +1,133 @@
+#!/usr/bin/env python
+"""TUM RGB-D driver for the PyTorch port.
+
+The port's counterpart of scripts/run_tum.py: run the system over an
+associated TUM sequence with offline YOLACT masks, save
+CameraTrajectory.txt / KeyFrameTrajectory.txt / ObjectInfo.txt, and print
+the same JSON summary (fps, per-frame track times, keyframes, points, and
+the ATE against groundtruth.txt when the sequence has one).
+
+Frames are decoded inline by the port's PNG reader (no prefetch thread)
+and fed as u8 rgb + raw u16 depth; the frame builder converts on the
+device.
+
+Usage:
+  python scripts/run_tum_torch.py --seq DIR [--semantic-dir DIR]
+      [--out OUT_DIR] [--max-frames N] [--no-objects] [--metrics PATH]
+      [--device cuda|cpu]
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                ".."))
+
+import numpy as np  # noqa: E402
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--seq", required=True)
+    ap.add_argument("--semantic-dir", default=None)
+    ap.add_argument("--out", default="ExpResults")
+    ap.add_argument("--max-frames", type=int, default=0)
+    ap.add_argument("--no-objects", action="store_true")
+    ap.add_argument("--metrics", default=None,
+                    help="write per-frame JSONL metrics to this path "
+                         "(utils/metrics.MetricsStream)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    args = ap.parse_args()
+
+    from object_slam_tpu_torch.config import SlamConfig
+    from object_slam_tpu_torch.datasets import tum
+    from object_slam_tpu_torch.eval import ate as ate_mod
+    from object_slam_tpu_torch.eval import trajectory_io
+    from object_slam_tpu_torch.semantic import loader as sem_loader
+    from object_slam_tpu_torch.slam.system import SlamSystem
+
+    cfg = SlamConfig.tum_rgbd()
+    frames = tum.load_sequence(args.seq)
+    if args.max_frames:
+        frames = frames[:args.max_frames]
+    print(f"{len(frames)} frames")
+
+    metrics = None
+    if args.metrics:
+        from object_slam_tpu_torch.utils.metrics import MetricsStream
+        metrics = MetricsStream(args.metrics)
+    sys_ = SlamSystem(cfg, enable_objects=not args.no_objects,
+                      device=args.device, metrics=metrics)
+
+    t0 = time.perf_counter()
+    times, loop_times = [], []
+    for i, fr in enumerate(frames):
+        ti0 = time.perf_counter()
+        rgb, depth16 = tum.load_frame_raw(fr)
+        sem_arrays = None
+        if args.semantic_dir:
+            dets = sem_loader.read_semantic_dir(
+                args.semantic_dir, sem_loader.tum_frame_key(fr.timestamp),
+                cfg.semantic.min_confidence, cfg.semantic.valid_labels_tum)
+            if dets:
+                sem_arrays = sem_loader.detections_to_arrays(
+                    dets, cfg.semantic.max_instances, cfg.camera.height,
+                    cfg.camera.width)
+        tf0 = time.perf_counter()
+        sys_.track_rgbd(None, depth16, rgb, sem_arrays,
+                        timestamp=fr.timestamp)
+        times.append(time.perf_counter() - tf0)
+        loop_times.append(time.perf_counter() - ti0)
+        if i % 50 == 0:
+            print(f"frame {i}/{len(frames)} kfs={sys_.n_keyframes} "
+                  f"pts={sys_.n_points}")
+    sys_.flush_mapping()
+    total = time.perf_counter() - t0
+    if metrics is not None:
+        metrics.close()
+
+    os.makedirs(args.out, exist_ok=True)
+    traj = sys_.final_trajectory()
+    m = sys_.map
+    trajectory_io.save_trajectory_tum(
+        os.path.join(args.out, "CameraTrajectory.txt"), traj)
+    trajectory_io.save_keyframe_trajectory_tum(
+        os.path.join(args.out, "KeyFrameTrajectory.txt"),
+        m.kf_timestamp.cpu().numpy(), m.kf_pose.cpu().numpy(),
+        m.kf_valid.cpu().numpy())
+    if sys_.objects is not None:
+        trajectory_io.save_object_info(
+            os.path.join(args.out, "ObjectInfo.txt"),
+            m.obj_label.cpu().numpy(), m.obj_valid.cpu().numpy(),
+            sys_.objects.semantic_constraints)
+
+    lt = np.asarray(loop_times)
+    tt = np.asarray(times)
+    result = {
+        "frames": len(frames),
+        "fps": len(frames) / total,
+        "median_track_ms": float(np.median(tt) * 1e3),
+        "median_overhead_ms": float(np.median(lt - tt) * 1e3),
+        "p90_frame_ms": float(np.percentile(lt, 90) * 1e3),
+        "max_frame_ms": float(np.max(lt) * 1e3),
+        "keyframes": sys_.n_keyframes,
+        "points": sys_.n_points,
+    }
+    gt_file = os.path.join(args.seq, "groundtruth.txt")
+    if os.path.isfile(gt_file):
+        ts_gt, pos_gt, _ = tum.load_groundtruth(args.seq)
+        est = [(t, np.linalg.inv(T)[:3, 3]) for t, T, ok in traj if ok]
+        pairs = ate_mod.associate_timestamps([t for t, _ in est], ts_gt)
+        if len(pairs) > 10:
+            e = np.array([est[a][1] for a, b in pairs])
+            g = np.array([pos_gt[b] for a, b in pairs])
+            result["ate_rmse"] = ate_mod.ate_rmse(e, g)
+    print(json.dumps(result))
+
+
+if __name__ == "__main__":
+    main()

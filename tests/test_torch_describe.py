@@ -22,6 +22,9 @@ from object_slam_tpu.ops.patch_pallas import extract_patches_xla
 from object_slam_tpu_torch.features import extractor as t_ex
 from object_slam_tpu_torch.features import pyramid as t_pyr
 from object_slam_tpu_torch.ops import describe as d_mod
+from torch_fixtures.threads import share_cores
+
+share_cores()
 
 TUM_VGA = t_pyr.level_shapes(480, 640, 8, 1.2)
 SMALL = t_pyr.level_shapes(120, 160, 4, 1.2)

@@ -20,6 +20,9 @@ from object_slam_tpu_torch.features import extractor as t_ex
 from object_slam_tpu_torch.features import fast as t_fast
 from object_slam_tpu_torch.features import matching as t_match
 from object_slam_tpu_torch.features import pyramid as t_pyr
+from torch_fixtures.threads import share_cores
+
+share_cores()
 
 
 def _cfgs():

@@ -20,6 +20,9 @@ from object_slam_tpu_torch.geometry import se3 as t_se3
 from object_slam_tpu_torch.geometry import triangulation as t_tri
 from object_slam_tpu_torch.solvers import ba as t_ba
 from object_slam_tpu_torch.solvers import pose_opt as t_po
+from torch_fixtures.threads import share_cores
+
+share_cores()
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "torch_fixtures",
                        "slice1.npz")

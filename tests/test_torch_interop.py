@@ -19,6 +19,9 @@ from object_slam_tpu.slam.map_state import MapState as JMapState
 from object_slam_tpu.slam.map_state import init_map as j_init_map
 from object_slam_tpu_torch import interop
 from object_slam_tpu_torch.slam.map_state import MapState, init_map
+from torch_fixtures.threads import share_cores
+
+share_cores()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(object_slam_tpu_torch.__file__)

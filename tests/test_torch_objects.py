@@ -11,6 +11,8 @@ exact and its floats 1e-5; IoU 1e-6; association obj3d exact; the update's
 integer slabs exact and floats 1e-5; the merge exact; the semantic
 optimizer's pose 1e-5 m / 1e-4 rad with kp_pt and n_sem exact."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,7 @@ import torch
 
 from object_slam_tpu.config import CameraConfig as JCameraConfig
 from object_slam_tpu.config import CapacityConfig as JCapacityConfig
+from object_slam_tpu.config import SemanticConfig as JSemanticConfig
 from object_slam_tpu.config import SlamConfig as JSlamConfig
 from object_slam_tpu.geometry.camera import Intrinsics as JIntrinsics
 from object_slam_tpu.ops import distance_transform as jdt
@@ -31,7 +34,7 @@ from object_slam_tpu.slam.map_state import init_map as j_init_map
 from object_slam_tpu.slam.tracking import TrackResult as JTrackResult
 from object_slam_tpu_torch import interop
 from object_slam_tpu_torch.config import CameraConfig, CapacityConfig
-from object_slam_tpu_torch.config import SlamConfig
+from object_slam_tpu_torch.config import SemanticConfig, SlamConfig
 from object_slam_tpu_torch.geometry.camera import Intrinsics
 from object_slam_tpu_torch.ops import distance_transform as tdt
 from object_slam_tpu_torch.semantic import hsv as thsv
@@ -40,6 +43,9 @@ from object_slam_tpu_torch.slam import objects as tobj
 from object_slam_tpu_torch.slam.map_state import init_map
 from object_slam_tpu_torch.slam.tracking import TrackResult
 from torch_fixtures import cases
+from torch_fixtures.threads import share_cores
+
+share_cores()
 
 I_DET, N_KP, HC = 16, 256, 16
 
@@ -393,10 +399,63 @@ def test_semopt_from_a_jax_slab_through_interop():
         np.linalg.norm(T0[:3, 3] - T_true[:3, 3])
 
 
-def test_staged_semantic_path_raises():
-    _, te = engines()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        te.track_local_map_semantic(None, None, None)
+def test_staged_semantic_local_map_matches_jax():
+    """ObjectEngine.track_local_map_semantic (the staged path's local map
+    with the object edges) live in both packages, on the inputs of one
+    call of the JAX staged run (tests/torch_fixtures/pipelined.npz,
+    make_reference.py pipelined): pose 1e-5 m / 1e-4 rad, matches and
+    n_sem exact, the search's visible / found counters exact."""
+    fx = np.load(os.path.join(os.path.dirname(__file__), "torch_fixtures",
+                              "pipelined.npz"))
+    sub = {k[len("semlocal."):]: fx[k] for k in fx.files
+           if k.startswith("semlocal.")}
+    m_np = {k[5:]: v for k, v in sub.items() if k.startswith("m_in.")}
+    fr_np = {k[6:]: v for k, v in sub.items() if k.startswith("frame.")
+             and not k.startswith("frame.obj.")}
+    sl = {k[10:]: v for k, v in sub.items() if k.startswith("frame.obj.")}
+    sl["masks"] = np.unpackbits(sl.pop("masks_packed"), axis=-1)[
+        ..., :160].astype(bool)
+    cam = dict(width=160, height=120, fx=130.0, fy=130.0, cx=80.0, cy=60.0,
+               dist=(0, 0, 0, 0, 0), bf=13.0, th_depth=40.0,
+               depth_map_factor=1.0)
+    caps = dict(n_kp=384, max_points=8192, max_keyframes=64)
+    jcfg = JSlamConfig(camera=JCameraConfig(**cam),
+                       caps=JCapacityConfig(**caps),
+                       semantic=JSemanticConfig(mask_margin=3,
+                                                min_kps_rgbd=4))
+    tcfg = SlamConfig(camera=CameraConfig(**cam), caps=CapacityConfig(**caps),
+                      semantic=SemanticConfig(mask_margin=3, min_kps_rgbd=4))
+    jm = JMapState(**{k: jnp.asarray(v) for k, v in m_np.items()})
+    jf = JFrameData(obj=jo2d.Object2DSlab(**{k: jnp.asarray(v)
+                                            for k, v in sl.items()}),
+                    **{k: jnp.asarray(v) for k, v in fr_np.items()})
+    kp = sub["tr_kp_pt"]
+    jtr = JTrackResult(Tcw=jnp.asarray(sub["tr_Tcw"]), kp_pt=jnp.asarray(kp),
+                       inlier=jnp.asarray(kp >= 0),
+                       n_matches=jnp.int32(sub["tr_n_matches"]),
+                       n_inliers=jnp.int32(sub["tr_n_inliers"]))
+    tm = interop.map_state_from_numpy(m_np, device="cpu")
+    tf = interop.frame_from_numpy(fr_np, tcfg, device="cpu", obj=sl)
+    ttr = TrackResult(Tcw=t(sub["tr_Tcw"]), kp_pt=t(kp), inlier=t(kp >= 0),
+                      n_matches=torch.tensor(int(sub["tr_n_matches"])),
+                      n_inliers=torch.tensor(int(sub["tr_n_inliers"])))
+    je = jobj.ObjectEngine(jcfg, JIntrinsics.from_config(jcfg.camera))
+    te = tobj.ObjectEngine(tcfg, Intrinsics.from_config(tcfg.camera),
+                           device="cpu")
+    assert bool(np.any(sub["frame.obj3d"] >= 0))
+    (jres, jm2, jn, jpre) = jax.jit(je._semlocal_impl)(jm, jf, jtr)
+    tres, tm2, tn, tpre = te.track_local_map_semantic(tm, tf, ttr)
+    for a, b in ((tres.Tcw, jres.Tcw), (tpre, jpre)):
+        a, b = npy(a).astype(np.float64), np.asarray(b, np.float64)
+        assert np.abs(a[:3, 3] - b[:3, 3]).max() < 1e-5
+        Rd = a[:3, :3].T @ b[:3, :3]
+        assert np.linalg.norm([Rd[2, 1] - Rd[1, 2], Rd[0, 2] - Rd[2, 0],
+                               Rd[1, 0] - Rd[0, 1]]) / 2.0 < 1e-4
+    assert np.array_equal(npy(tres.kp_pt), np.asarray(jres.kp_pt))
+    assert int(tres.n_inliers) == int(jres.n_inliers) > 30
+    assert int(tres.n_matches) == int(jres.n_matches)
+    assert int(tn) == int(jn) > 0
+    assert_maps(jm2, tm2, fields=("pt_visible", "pt_found"))
 
 
 def test_engine_defaults_to_the_card():

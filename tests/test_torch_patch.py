@@ -16,6 +16,9 @@ from object_slam_tpu.ops.patch_pallas import (extract_patches as
                                               pallas_extract_patches,
                                               extract_patches_xla)
 from object_slam_tpu_torch.ops import patch as patch_mod
+from torch_fixtures.threads import share_cores
+
+share_cores()
 
 
 def _inputs(seed, H=120, W=160, n=64, lo=-20):

@@ -30,6 +30,9 @@ from object_slam_tpu_torch.geometry.camera import Intrinsics
 from object_slam_tpu_torch.slam import tracking as t_trk
 from object_slam_tpu_torch.slam.objects import ObjectEngine
 from object_slam_tpu_torch.slam.system import SlamSystem
+from torch_fixtures.threads import share_cores
+
+share_cores()
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "torch_fixtures",
                        "objects.npz")

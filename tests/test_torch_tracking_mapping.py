@@ -25,6 +25,9 @@ from object_slam_tpu_torch.slam import local_mapping, map_ops
 from object_slam_tpu_torch.slam import tracking as t_trk
 from object_slam_tpu_torch.slam import map_state as t_map_state
 from object_slam_tpu_torch.slam.map_state import MapState
+from torch_fixtures.threads import share_cores
+
+share_cores()
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "torch_fixtures",
                        "slice1.npz")

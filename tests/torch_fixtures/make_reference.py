@@ -10,15 +10,25 @@ inputs and outputs are recorded here once and committed:
 * ``objects.npz``: the objects-on run of the object-stability scene
   (8 frames) and one fused step with the object hooks, masks bit-packed;
 * ``objects_tum_vga.npz``: the objects-on run of ``chip_smoke.py``'s 40
-  TUM-VGA frames, which ``chip_smoke.py`` holds the card's run to.
+  TUM-VGA frames, which ``chip_smoke.py`` holds the card's run to;
+* ``pipelined.npz``: the small runs with the default one-frame-lagged
+  readback (slice1's orbit objects off, the object-stability scene
+  objects on) and the staged path (``fused=False``), with the inputs of
+  one staged semantic local-map call;
+* ``kidnap.npz``: the small kidnap (a pan, dark frames, a jump back to
+  the start), pipelined, objects off, with every RANSAC index set drawn;
+* ``pipelined_tum_vga.npz`` and ``kidnap_tum_vga.npz``: bench.py's
+  protocol on the 40 TUM-VGA frames (blobs, pipelined, objects on) and
+  the VGA kidnap (blobs, objects on), for ``chip_smoke.py``.
 
 Run from the repository root (all parts, or the ones named):
 
-    python tests/torch_fixtures/make_reference.py [slice1] [objects] [tum_vga]
+    python tests/torch_fixtures/make_reference.py [slice1] [objects]
+        [tum_vga] [pipelined] [kidnap] [pipelined_tum_vga] [kidnap_tum_vga]
 
-Every run uses ``pipelined_readback=False``. The rendered inputs'
-checksums are stored so that the tests can prove they re-render the same
-frames.
+slice1, objects and tum_vga use ``pipelined_readback=False``. The rendered
+inputs' checksums are stored so that the tests can prove they re-render
+the same frames.
 """
 
 from __future__ import annotations
@@ -410,8 +420,266 @@ def record_tum_vga():
           f"{seconds:.1f} s on the CPU (compiles included)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the pipelined readback, the staged path and relocalization
+# ---------------------------------------------------------------------------
+
+OUT_PIPELINED = os.path.join(HERE, "pipelined.npz")
+OUT_KIDNAP = os.path.join(HERE, "kidnap.npz")
+OUT_PIPELINED_VGA = os.path.join(HERE, "pipelined_tum_vga.npz")
+OUT_KIDNAP_VGA = os.path.join(HERE, "kidnap_tum_vga.npz")
+PIPE_FRAMES = 12
+STAGED_FRAMES = 8
+
+
+def pan_pose(i: float, yaw_rate: float, step: float):
+    """World->camera pose i of a sideways pan: the camera slides by -step
+    per frame along x and turns yaw_rate rad per frame about y."""
+    T = np.eye(4, dtype=np.float32)
+    T[:3, 3] = [-(i * step), 0.02 * np.sin(i * 0.3), 0.0]
+    c, s = np.cos(yaw_rate * i), np.sin(yaw_rate * i)
+    T[:3, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+    return T
+
+
+def kidnap_sequence(n_track, n_blank, n_after, yaw_rate, step):
+    """A pan of n_track frames, n_blank dark frames, then a jump back to
+    the start of the pan, re-run for n_after frames. Returns (poses [F, 4,
+    4], blank [F] bool); a blank frame's pose is the jump target."""
+    poses = [pan_pose(i, yaw_rate, step) for i in range(n_track)]
+    poses += [pan_pose(0, yaw_rate, step)] * n_blank
+    poses += [pan_pose(j, yaw_rate, step) for j in range(n_after)]
+    blank = np.zeros(len(poses), bool)
+    blank[n_track:n_track + n_blank] = True
+    return np.stack(poses), blank
+
+
+class Recorder:
+    """Wraps a JAX SlamSystem from the outside (nothing in the package
+    changes): which frames ran the staged path, every relocalization call
+    with its outcome, every RANSAC index set drawn, and the inputs of every
+    staged semantic local-map call."""
+
+    def __init__(self, sys_):
+        from object_slam_tpu.solvers import ransac as jransac
+        self.sys = sys_
+        self.staged, self.reloc, self.sets, self.semlocal = [], [], [], []
+        jit_motion, relocalize = sys_._jit_motion, sys_._relocalize
+        self._orig_sample = jransac.sample_minimal_sets
+
+        def motion(*args):
+            if sys_.frame_id not in self.staged:
+                self.staged.append(sys_.frame_id)
+            return jit_motion(*args)
+
+        def reloc(frame):
+            tr = relocalize(frame)
+            self.reloc.append((float(frame.timestamp), tr is not None))
+            return tr
+
+        def sample(key, n, valid, n_trials, k):
+            idx = self._orig_sample(key, n, valid, n_trials, k)
+            self.sets.append(np.asarray(idx, np.int32))
+            return idx
+
+        sys_._jit_motion = motion
+        sys_._relocalize = reloc
+        jransac.sample_minimal_sets = sample
+        if sys_.objects is not None:
+            semlocal = sys_.objects.track_local_map_semantic
+
+            def sem(m, frame, tr):
+                res = semlocal(m, frame, tr)
+                self.semlocal.append((m, frame, tr, res))
+                return res
+            sys_.objects.track_local_map_semantic = sem
+
+    def close(self):
+        from object_slam_tpu.solvers import ransac as jransac
+        jransac.sample_minimal_sets = self._orig_sample
+
+
+def run_pipelined(cfg, scene, poses, objects, blank=None, blob=False,
+                  tag=""):
+    """One JAX system run (the tracking config's readback mode) with the
+    Recorder on. Frames are rendered, or dark where blank; blob=True feeds
+    them as bench.py does (u16 depth, u8 rgb, one blob per frame)."""
+    import time
+    sys_ = SlamSystem(cfg, enable_objects=objects)
+    rec = Recorder(sys_)
+    H, W = cfg.camera.height, cfg.camera.width
+    gray_sum, n_det = [], []
+    t0 = time.perf_counter()
+    for i, T in enumerate(poses):
+        dark = blank is not None and blank[i]
+        if dark:
+            gray = depth = np.zeros((H, W), np.float32)
+            rgb = np.zeros((H, W, 3), np.float32)
+            sa = None
+        else:
+            gray, depth, rgb, sem = scene.render_rgbd(T)
+            gray = np.asarray(gray, np.float32)
+            depth = np.asarray(depth, np.float32)
+            rgb = np.asarray(rgb, np.float32)
+            sa = (scene.sem_arrays(sem, cfg.semantic.max_instances)
+                  if objects else None)
+        gray_sum.append(float(np.sum(gray, dtype=np.float64)))
+        n_det.append(0 if sa is None else int(np.sum(sa[4])))
+        if blob:
+            d16 = np.clip(depth * cfg.camera.depth_map_factor, 0,
+                          65535).astype(np.uint16)
+            rgb8 = np.clip(rgb, 0, 255).astype(np.uint8)
+            b, iv = sys_.builder.pack_frame_blob(d16, rgb8, sa)
+            sys_.track_rgbd_blob(b, iv, timestamp=i / 30.0)
+        else:
+            sys_.track_rgbd(jnp.asarray(gray), jnp.asarray(depth),
+                            jnp.asarray(rgb), sa, timestamp=i / 30.0)
+        print(f"{tag} frame {i}: state={sys_.state} staged={rec.staged[-1:]}"
+              f" reloc={rec.reloc[-1:]} t={time.perf_counter() - t0:.1f}s",
+              flush=True)
+    sys_.flush_mapping()
+    seconds = time.perf_counter() - t0
+    rec.close()
+    traj = sys_.final_trajectory()
+    m = sys_.map
+    kf_valid = np.asarray(m.kf_valid)
+    out = {
+        "tracked": np.asarray([r.tracked for r in sys_.trajectory]),
+        "rec_tcw": np.stack([r.Tcw for r in sys_.trajectory]).astype(
+            np.float32),
+        "rec_ref": np.asarray([r.ref_kf for r in sys_.trajectory], np.int32),
+        "rec_tcr": np.stack([r.Tcr for r in sys_.trajectory]).astype(
+            np.float32),
+        "final_tcw": np.stack([t[1] for t in traj]).astype(np.float32),
+        "kf_frames": np.asarray(m.kf_frame_id)[kf_valid].astype(np.int32),
+        "n_points": np.int32(int(np.sum(np.asarray(m.pt_valid)))),
+        "gray_sum": np.asarray(gray_sum),
+        "n_detections": np.asarray(n_det, np.int32),
+        "staged_frames": np.asarray(rec.staged, np.int32),
+        "reloc_frames": np.asarray([round(t * 30.0) for t, _ in rec.reloc],
+                                   np.int32),
+        "reloc_ok": np.asarray([ok for _, ok in rec.reloc], bool),
+        "sets": (np.stack(rec.sets) if rec.sets
+                 else np.zeros((0, 256, 6), np.int32)),
+        "seconds": np.float64(seconds),
+    }
+    if objects:
+        labels = np.asarray(m.obj_label)[np.asarray(m.obj_valid)]
+        lab, cnt = np.unique(labels, return_counts=True)
+        out.update({"census_labels": lab.astype(np.int32),
+                    "census_counts": cnt.astype(np.int32),
+                    "semantic_constraints": np.int64(
+                        sys_.objects.semantic_constraints)})
+    gt = np.stack([np.linalg.inv(T)[:3, 3] for T in poses])
+    est = np.stack([np.linalg.inv(T)[:3, 3] for T in out["final_tcw"]])
+    ok = out["tracked"]
+    out["ate"] = np.float64(ate_rmse(est[ok], gt[ok]))
+    print(f"{tag}: {int(ok.sum())}/{len(ok)} tracked, KFs at "
+          f"{out['kf_frames']}, staged {rec.staged}, reloc {rec.reloc}, "
+          f"{len(rec.sets)} sample sets, ATE {out['ate']:.6f} m, "
+          f"{seconds:.1f} s", flush=True)
+    return out, rec
+
+
+def put(out, prefix, d):
+    out.update({f"{prefix}.{k}": v for k, v in d.items()})
+
+
+def record_pipelined(out):
+    """The small pipelined runs: objects off on slice1's scene (12
+    frames), objects on on the object-stability scene (12 frames), and the
+    staged path (fused=False, objects on, 8 frames) with the inputs and
+    outputs of one staged semantic local-map call."""
+    base = small_cfg().replace(tracking=TrackingConfig())
+    scene = SyntheticScene.make(base, seed=SCENE_SEED, n_objects=2)
+    res, _ = run_pipelined(base, scene, orbit_poses(PIPE_FRAMES, step=0.02),
+                           False, tag="pipelined off")
+    put(out, "off", res)
+
+    ocfg = objects_cfg().replace(tracking=TrackingConfig())
+    oscene, _ = object_scene(ocfg)
+    res, _ = run_pipelined(ocfg, oscene,
+                           orbit_poses(PIPE_FRAMES, step=0.008), True,
+                           tag="pipelined on")
+    put(out, "on", res)
+
+    scfg = objects_cfg().replace(tracking=TrackingConfig(fused=False))
+    res, rec = run_pipelined(scfg, oscene,
+                             orbit_poses(STAGED_FRAMES, step=0.008), True,
+                             tag="staged on")
+    put(out, "staged", res)
+    m, frame, tr, _ = rec.semlocal[len(rec.semlocal) // 2]
+    put_map(out, "semlocal.m_in", m)
+    put_frame(out, "semlocal.frame", frame)
+    put_slab(out, "semlocal.frame.obj", frame.obj)
+    out.update({"semlocal.tr_Tcw": np.asarray(tr.Tcw),
+                "semlocal.tr_kp_pt": np.asarray(tr.kp_pt),
+                "semlocal.tr_n_matches": np.int32(tr.n_matches),
+                "semlocal.tr_n_inliers": np.int32(tr.n_inliers)})
+
+
+# the kidnap sequences: (n_track, n_blank, n_after, yaw_rate, step)
+KIDNAP_SMALL = (18, 3, 5, 0.04, 0.01)
+KIDNAP_VGA = (36, 3, 10, 0.035, 0.01)
+
+
+def record_kidnap(out):
+    """The small kidnap: objects off, pipelined readback, on the
+    object-stability scene."""
+    cfg = objects_cfg().replace(tracking=TrackingConfig())
+    scene, _ = object_scene(cfg)
+    poses, blank = kidnap_sequence(*KIDNAP_SMALL)
+    res, _ = run_pipelined(cfg, scene, poses, False, blank=blank,
+                           tag="kidnap")
+    check_kidnap(res)
+    out.update(res)
+    out.update({"poses": poses, "blank": blank})
+
+
+def check_kidnap(res):
+    if not res["reloc_ok"].any():
+        raise SystemExit("the kidnap run never relocalized")
+    if not len(res["staged_frames"]):
+        raise SystemExit("no frame of the kidnap run took the staged path")
+
+
+def tum_vga_scene(cfg):
+    scene = SyntheticScene.make(cfg, seed=3, n_objects=3)
+    for b in scene.boxes:
+        b["size"] = 0.9
+    return scene
+
+
+def record_pipelined_tum_vga():
+    """chip_smoke.py's bench protocol: the 40 TUM-VGA frames of bench.py,
+    packed by pack_frame_blob, objects on, the default pipelined
+    readback."""
+    cfg = SlamConfig.tum_rgbd()
+    res, _ = run_pipelined(cfg, tum_vga_scene(cfg),
+                           orbit_poses(TUM_VGA_FRAMES, step=0.01), True,
+                           blob=True, tag="bench vga")
+    np.savez_compressed(OUT_PIPELINED_VGA, **res)
+    print(f"wrote {OUT_PIPELINED_VGA}: "
+          f"{os.path.getsize(OUT_PIPELINED_VGA) / 1e3:.1f} kB", flush=True)
+
+
+def record_kidnap_tum_vga():
+    """chip_smoke.py's kidnap: objects on, pipelined readback, blobs, on
+    bench.py's scene at TUM VGA."""
+    cfg = SlamConfig.tum_rgbd()
+    poses, blank = kidnap_sequence(*KIDNAP_VGA)
+    res, _ = run_pipelined(cfg, tum_vga_scene(cfg), poses, True,
+                           blank=blank, blob=True, tag="kidnap vga")
+    check_kidnap(res)
+    res.update({"poses": poses, "blank": blank})
+    np.savez_compressed(OUT_KIDNAP_VGA, **res)
+    print(f"wrote {OUT_KIDNAP_VGA}: "
+          f"{os.path.getsize(OUT_KIDNAP_VGA) / 1e3:.1f} kB", flush=True)
+
+
 def main():
-    parts = sys.argv[1:] or ["slice1", "objects", "tum_vga"]
+    parts = sys.argv[1:] or ["slice1", "objects", "tum_vga", "pipelined",
+                             "kidnap", "pipelined_tum_vga", "kidnap_tum_vga"]
     if "slice1" in parts:
         out = {}
         record_local_ba(out)
@@ -428,6 +696,18 @@ def main():
               f"{len(out)} arrays", flush=True)
     if "tum_vga" in parts:
         record_tum_vga()
+    for name, path, fn in (("pipelined", OUT_PIPELINED, record_pipelined),
+                           ("kidnap", OUT_KIDNAP, record_kidnap)):
+        if name in parts:
+            out = {}
+            fn(out)
+            np.savez_compressed(path, **out)
+            print(f"wrote {path}: {os.path.getsize(path) / 1e6:.2f} MB, "
+                  f"{len(out)} arrays", flush=True)
+    if "pipelined_tum_vga" in parts:
+        record_pipelined_tum_vga()
+    if "kidnap_tum_vga" in parts:
+        record_kidnap_tum_vga()
 
 
 if __name__ == "__main__":
