@@ -46,8 +46,39 @@ Phases, each fatal on failure:
   7. scripts/run_tum_torch.py on a 12-frame TUM-format directory with
      masks that this script writes under build/ (the port's zlib PNG
      writer): the three output files and the JSON summary;
-  8. one JSON line of the kernels (launches from the main path of 5,
-     host-in-the-loop, and per phase), the card line, and the last line
+  8. KITTI stereo at full width (SlamConfig.kitti_stereo(): 1241x376,
+     2000 features, n_kp 2048, 65536 points, 1024 keyframes): first one
+     local-mapping pass of the JAX sync drive stage by stage on the card
+     (kitti_pass.npz: each stage on the JAX stage's input, held to its
+     output; the local BA's keyframes within the JAX BA's own one-ulp
+     spread, and the BA skipped shown to fail that limit); then the first
+     24 frames of scripts/make_synth_kitti.py's street canyon, rendered by
+     a pool of processes (render seconds printed; orb_describe is also
+     held to its plain version at the left image's shapes in phase 2);
+     track_stereo(gray_l, gray_r, rgb=None, detections), objects on, the
+     default fused pipelined path, with inline mapping, then with the
+     mapping pass on a worker thread and side stream (async), each twice:
+     with the JAX CPU run's keyframe decisions replayed (held to that run,
+     kitti_stereo.npz: identical tracked flags and keyframe frames, the
+     census equal, semantic constraints within 10%, 0.1 deg, records and
+     ATE within KITTI_NOISE_MARGIN times the distance of the farthest of
+     the JAX run's own one-ulp noise runs that kept its keyframes), and
+     with its own decisions (the main path: flags, census and constraints
+     held, the keyframes against the CPU port's where KITTI_WITNESS_KFS
+     holds them, else printed with the first differing decision's inputs,
+     ATE < 0.1 m); at least one abbreviated-schedule pass and, async, one
+     keyframe-barrier merge; two orb_describe per frame; ms/frame of the
+     runs side by side. Then the replayed drive three times with a fault
+     planted in the mapping path (local BA skipped, sync and async; the
+     pass's result dropped at the async merge), each of which must fail a
+     check; then 32 frames of a longer drive on which cars pass within
+     ThDepth x baseline, async, replayed, held to kitti_objects.npz
+     (objects form: census identical, constraints within 10%);
+  9. scripts/run_kitti_torch.py on 10 of those frames written as a KITTI
+     directory with a YOLACT-format semantic folder under build/;
+ 10. one JSON line of the kernels (launches from the main path of 5,
+     host-in-the-loop, and per phase; orb_describe's row also carries its
+     KITTI-shape numbers), the card line, and the last line
      {"ok": true, "device": {...}}.
 
 Exits non-zero without a card, and when the port's package is absent.
@@ -83,6 +114,59 @@ REFERENCE = os.path.join(FIXTURES, "objects_tum_vga.npz")
 BENCH_REF = os.path.join(FIXTURES, "pipelined_tum_vga.npz")
 KIDNAP_REF = os.path.join(FIXTURES, "kidnap_tum_vga.npz")
 TUM_FRAMES = 12
+# KITTI stereo (SlamConfig.kitti_stereo(), full width): the JAX CPU runs of
+# make_synth_kitti.py's first 24 frames, sync and async mapping
+KITTI_REF = os.path.join(FIXTURES, "kitti_stereo.npz")
+KITTI_FRAMES = 24
+KITTI_WARMUP = 4
+KITTI_DRIVER_FRAMES = 10
+# the bands: the street canyon is at scale 8 (points 10-100 units away),
+# where the JAX package's own local BA moves a keyframe by millimetres
+# when its input points move by one float32 ulp (kitti_pass.npz: 3.8-5.3
+# mm), and each pass feeds the next; the fixture holds the JAX run under
+# such noise (make_reference.py ulp_noise), and a record or the ATE may
+# lie KITTI_NOISE_MARGIN times as far from the JAX run as the farthest of
+# its noise runs that kept its keyframes (kitti_bands). Readings (PERF.md
+# section 6): working ports land at 0.36 (the CPU) and 0.72 (the card) of
+# that farthest record distance in sync, 0.54 and 1.34 in async; faults
+# planted in the mapping path (phase_kitti_controls) at 2.5 and more, with
+# ATEs of 109-111 mm against ATE limits of 48.6 / 37.8 mm
+KITTI_NOISE_MARGIN = 2.0
+# one mapping pass of the sync drive, stage by stage (make_reference.py
+# kitti_pass). Every field not named here must equal the JAX stage's
+# output: the culls and the fusion decide by counts and thresholds. Named:
+# the largest absolute difference of a float field in scene units (the
+# triangulated points lie 10-100 units away; the CPU port reads 4.2e-4,
+# 4.5e-4, 1.6e-3 and 4.2e-7 for xyz, min / max distance and normal), or
+# None: printed only (the local BA's points and outlier decisions move as
+# chaotically as its keyframes; its keyframes are held by phase_kitti_pass
+# to KITTI_NOISE_MARGIN times the JAX BA's own one-ulp spread, where the
+# BA skipped lands 204 mm away)
+KITTI_PASS_REF = os.path.join(FIXTURES, "kitti_pass.npz")
+KITTI_PASS_LIMITS = {
+    "triangulate": {"pt_xyz": 5e-3, "pt_min_dist": 5e-3,
+                    "pt_max_dist": 2e-2, "pt_normal": 1e-5},
+    "point_stats": {"pt_normal": 1e-5},
+    "local_ba": {"pt_xyz": None, "pt_valid": None, "pt_n_obs": None,
+                 "kf_kp_pt": None, "kf_pose": None},
+}
+# the witness for the card's own keyframe decisions: the port's run of
+# the same drive on the CPU (scripts/diag_kitti_card_cpu.py dump --device
+# cpu --frames 24 [--async-mapping]), which keeps the JAX run's keyframes
+# in both modes. The card agrees with it to one float32 ulp up to the
+# local BA, whose passes on keyframes 2 and 3 land 0.7 and 4.6 mm apart
+# (the JAX BA against itself under one ulp: 3.8-5.3 mm); in sync, frame 7
+# then reads 336 inliers on the card against 340 on the CPU, at a
+# threshold of 336.6, and the runs part. So sync is not held (None); the
+# async run's decisions do not come that close and are held
+KITTI_WITNESS_KFS = {"sync": None, "async": (0, 1, 2, 3, 8, 13, 18, 22)}
+# the drive on which objects form (make_reference.py kitti_objects)
+KITTI_OBJ_REF = os.path.join(FIXTURES, "kitti_objects.npz")
+KITTI_OBJ_DRIVE = 40
+KITTI_OBJ_FIRST = 8
+# the port's own keyframe decisions: a sanity bound on the ATE (the JAX
+# runs and their noise runs read 12.9-39.9 mm)
+KITTI_OWN_ATE_M = 0.1
 # a relocalized record that holds a PnP pose alone, against the reference's
 # (see hold_to_reference)
 PNP_BAND_M = 5e-3
@@ -167,47 +251,6 @@ def render(cfg, n_frames):
                        rgb.astype(np.float32)))
         sems.append(scene.sem_arrays(sem, cfg.semantic.max_instances))
     return poses, frames, sems
-
-
-def write_tum_dir(out: str, cfg, poses, renders, t0: float = 1000.0):
-    """A TUM-format sequence, as scripts/make_synth_tum.py writes it:
-    rgb/ and depth/ PNGs (u8 rgb, raw u16 depth), rgb.txt, depth.txt,
-    groundtruth.txt and a YOLACT-format semantic/ folder (each valid
-    detection's line and 0/255 mask), every PNG from the port's zlib
-    writer. renders: per pose (depth [H, W] metric, rgb [H, W, 3], the
-    frame's sem_arrays slab)."""
-    from object_slam_tpu_torch.datasets.png import write_png
-    from object_slam_tpu_torch.eval.trajectory_io import _rot_to_quat
-    for sub in ("rgb", "depth", "semantic"):
-        os.makedirs(os.path.join(out, sub), exist_ok=True)
-    rgb_lines, depth_lines, gt_lines = [], [], []
-    for i, (T, (depth, rgb, sem)) in enumerate(zip(poses, renders)):
-        key = f"{t0 + i / 30.0:.6f}"
-        write_png(os.path.join(out, "rgb", key + ".png"),
-                  np.clip(rgb, 0, 255).astype(np.uint8))
-        write_png(os.path.join(out, "depth", key + ".png"),
-                  np.clip(depth * cfg.camera.depth_map_factor, 0,
-                          65535).astype(np.uint16))
-        rgb_lines.append(f"{key} rgb/{key}.png")
-        depth_lines.append(f"{key} depth/{key}.png")
-        Twc = np.linalg.inv(T)
-        t, q = Twc[:3, 3], _rot_to_quat(Twc[:3, :3])
-        gt_lines.append(f"{key} {t[0]:.6f} {t[1]:.6f} {t[2]:.6f} "
-                        f"{q[0]:.6f} {q[1]:.6f} {q[2]:.6f} {q[3]:.6f}")
-        masks, labels, probs, bboxes, valid = sem
-        fdir = os.path.join(out, "semantic", key)
-        os.makedirs(fdir, exist_ok=True)
-        with open(os.path.join(fdir, key + ".txt"), "w") as f:
-            for j in np.flatnonzero(valid):
-                x, y, w, h = bboxes[j]
-                f.write(f"{labels[j]} {probs[j]:.3f} {int(x)} {int(y)} "
-                        f"{int(w)} {int(h)} {j}\n")
-                write_png(os.path.join(fdir, f"{j}.png"),
-                          (np.asarray(masks[j]) * 255).astype(np.uint8))
-    for name, lines in (("rgb.txt", rgb_lines), ("depth.txt", depth_lines),
-                        ("groundtruth.txt", gt_lines)):
-        with open(os.path.join(out, name), "w") as f:
-            f.write("# synthetic\n" + "\n".join(lines) + "\n")
 
 
 def main_path_inputs(cfg, gray):
@@ -317,9 +360,9 @@ def phase_patches(levels, corners):
             "bound_by": "bytes", "library_ms": library_ms}
 
 
-def phase_describe(ex, levels, corners):
+def phase_describe(ex, levels, corners, tag: str = "TUM VGA"):
     """orb_describe against its plain version at the main path's shapes:
-    one launch for the frame's keypoints over all levels.
+    one launch for an image's keypoints over all levels.
 
     Tolerance: angles within 1e-5 rad (mod 2 pi) except where the plain
     version's stability margin |mag - tau * mass| is below 1e-4 tau mass
@@ -387,7 +430,8 @@ def phase_describe(ex, levels, corners):
     byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     op_ms = (f32_ops / F32_FLOP_PER_S + f64_ops / F64_FLOP_PER_S) * 1e3
     bound_ms = max(byte_ms, op_ms)
-    print(f"orb_describe: 1 launch, {n} keypoints over {len(lv)} levels; "
+    print(f"orb_describe ({tag}): 1 launch, {n} keypoints over {len(lv)} "
+          f"levels; "
           f"kernel {ms * 1e3:.1f} us ({dev_ms * 1e3:.2f} us on the device), "
           f"plain {plain_ms * 1e3:.1f} us, bound "
           f"{bound_ms * 1e3:.3f} us ({n_bytes / 2 ** 20:.2f} MiB, "
@@ -428,13 +472,13 @@ def zero_counts():
         fn.launches = 0
 
 
-def read_counts(name: str, n_frames: int):
-    """The launches since zero_counts(); fails unless they are one
-    orb_describe per frame (dark frames too: the extractor describes its
-    whole fixed-size keypoint slab, so the grid is never empty) and no
-    extract_patches."""
+def read_counts(name: str, n_frames: int, per_frame: int = 1):
+    """The launches since zero_counts(); fails unless they are per_frame
+    orb_describe per frame (one per image: dark frames too, since the
+    extractor describes its whole fixed-size keypoint slab, so the grid is
+    never empty; two for a stereo pair) and no extract_patches."""
     launches = {k: fn.launches for k, fn in counters().items()}
-    want = {"extract_patches": 0, "orb_describe": n_frames}
+    want = {"extract_patches": 0, "orb_describe": per_frame * n_frames}
     if launches != want:
         fail(f"{name}: kernel launches {launches}, expected {want}")
     return launches
@@ -897,15 +941,17 @@ def phase_tum(cfg, poses, frames, sems, card, n_frames: int = TUM_FRAMES):
     import io
     import runpy
     import shutil
+    from object_slam_tpu_torch.datasets.tum import write_sequence
 
     root = os.path.dirname(os.path.abspath(__file__))
     seq = os.path.join(root, "build", "tum_smoke", "seq")
     res_dir = os.path.join(root, "build", "tum_smoke", "out")
     shutil.rmtree(os.path.dirname(seq), ignore_errors=True)
     t0 = time.perf_counter()
-    write_tum_dir(seq, cfg, poses[:n_frames],
-                  [(d, rgb, sems[i]) for i, (_, d, rgb)
-                   in enumerate(frames[:n_frames])])
+    write_sequence(seq, poses[:n_frames],
+                   [(d, rgb, sems[i]) for i, (_, d, rgb)
+                    in enumerate(frames[:n_frames])],
+                   cfg.camera.depth_map_factor)
     write_s = time.perf_counter() - t0
     argv = sys.argv
     sys.argv = ["run_tum_torch.py", "--seq", seq, "--semantic-dir",
@@ -945,6 +991,424 @@ def phase_tum(cfg, poses, frames, sems, card, n_frames: int = TUM_FRAMES):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# KITTI stereo at full width: one mapping pass stage by stage, the drive
+# sync and async (with planted faults that must fail), objects, the driver
+# ---------------------------------------------------------------------------
+
+def kitti_bands(ref, mode: str):
+    """(record band m, ATE band m) of one mode: KITTI_NOISE_MARGIN times
+    the largest distance from the JAX run of its own one-ulp noise runs
+    (make_reference.py ulp_noise), per record and in ATE. Only noise runs
+    that tracked the frames and kept the keyframes the JAX run kept count:
+    a flipped decision is another trajectory, not noise."""
+    rec = ref[f"{mode}.rec_tcw"][:, :3, 3]
+    runs = sorted({k.split(".")[2] for k in ref.files
+                   if k.startswith(f"noise.{mode}.")})
+    kept = [k for k in runs
+            if np.array_equal(ref[f"noise.{mode}.{k}.kf_frames"],
+                              ref[f"{mode}.kf_frames"])
+            and np.array_equal(ref[f"noise.{mode}.{k}.tracked"],
+                               ref[f"{mode}.tracked"])]
+    if len(kept) < 3:
+        fail(f"KITTI: {KITTI_REF} holds {len(kept)} {mode} noise runs with "
+             f"the reference's keyframes (of {len(runs)}); 3 are needed")
+    d_rec = max(float(np.linalg.norm(
+        ref[f"noise.{mode}.{k}.rec_tcw"][:, :3, 3] - rec, axis=1).max())
+        for k in kept)
+    d_ate = max(abs(float(ref[f"noise.{mode}.{k}.ate"])
+                    - float(ref[f"{mode}.ate"])) for k in kept)
+    return KITTI_NOISE_MARGIN * d_rec, KITTI_NOISE_MARGIN * d_ate
+
+
+def kitti_drive(poses, frames, async_mapping: bool, ref_kfs=(),
+                replay: bool = False, control=None):
+    """SlamSystem(SlamConfig.kitti_stereo(), the default fused pipelined
+    path).track_stereo(gray_l, gray_r, rgb=None, detections) over frames,
+    then flush_mapping. replay=True gives each frame the keyframe decision
+    of the reference (frame in ref_kfs) at resolve time, as the kidnap
+    phase replays its RANSAC sets; either way each frame's own decision
+    and its inputs are kept. control plants a fault in the mapping path:
+    "no_local_ba" (every pass skips its local BA) or, async, "drop_pass"
+    (every pass's result is dropped at the merge). Returns the run's
+    records, keyframes, ATE, object census and timings."""
+    import torch
+    from object_slam_tpu_torch.config import SlamConfig
+    from object_slam_tpu_torch.eval.ate import ate_rmse
+    from object_slam_tpu_torch.slam import local_mapping
+    from object_slam_tpu_torch.slam import tracking as trk
+    from object_slam_tpu_torch.slam.system import SlamSystem
+
+    sys_ = SlamSystem(SlamConfig.kitti_stereo(), enable_objects=True,
+                      async_mapping=async_mapping, device="cuda")
+    decisions = {}          # frame -> (own decision, n_inliers, peak)
+    own = sys_._need_keyframe
+
+    def need_keyframe(pend, p):
+        d = own(pend, p)
+        decisions[pend["fid"]] = (d, int(p[trk.PACKED_N_INLIERS]),
+                                  int(sys_._kf_inliers))
+        return (pend["fid"] in ref_kfs) if replay else d
+    sys_._need_keyframe = need_keyframe
+    run_local_ba = local_mapping.run_local_ba
+    if control == "no_local_ba":
+        local_mapping.run_local_ba = lambda **kw: kw["m"]
+    elif control == "drop_pass":
+        sys_._async._merge_impl = lambda res, m_now, *a: m_now
+    elif control is not None:
+        raise ValueError(control)
+    try:
+        torch.cuda.synchronize()
+        times = []
+        t_all = time.perf_counter()
+        for i, (gl, gr, sa) in enumerate(frames):
+            t0 = time.perf_counter()
+            sys_.track_stereo(gl, gr, None, sa, timestamp=i / 10.0)
+            times.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        sys_.flush_mapping()
+        torch.cuda.synchronize()
+        flush_ms = (time.perf_counter() - t0) * 1e3
+        total_s = time.perf_counter() - t_all
+    finally:
+        local_mapping.run_local_ba = run_local_ba
+    recs = sys_.trajectory
+    m = sys_.map
+    fin = np.stack([t[1] for t in sys_.final_trajectory()])
+    ok = np.asarray([r.tracked for r in recs])
+    est = np.stack([np.linalg.inv(T)[:3, 3] for T in fin])[ok]
+    gt = np.stack([np.linalg.inv(T)[:3, 3] for T in poses])[ok]
+    labels = m.obj_label[m.obj_valid].cpu().numpy()
+    lab, cnt = np.unique(labels, return_counts=True)
+    res = {"tracked": ok.tolist(),
+           "rec_tcw": np.stack([r.Tcw for r in recs]),
+           "kf_frames": m.kf_frame_id[m.kf_valid].cpu().numpy().tolist(),
+           "ate": float(ate_rmse(est, gt)),
+           "census": dict(zip(lab.tolist(), cnt.tolist())),
+           "n_sem": int(sys_.objects.semantic_constraints),
+           "mapping": dict(sys_.mapping_stats),
+           "worker_ms": list(sys_._async.worker_ms
+                             if sys_._async is not None else []),
+           "decisions": decisions, "times": times, "flush_ms": flush_ms,
+           "total_s": total_s}
+    sys_.shutdown()
+    return res
+
+
+def kitti_checks(res, ref, mode: str, replay: bool, bands):
+    """The checks a KITTI drive is held to against the JAX run of
+    ref[mode]: [(name, reading, limit, passed)]. Tracked flags, the census
+    and semantic constraints (within 10%) always; with replay, also the
+    keyframe frames and every record within 0.1 deg and the record band,
+    the ATE within the ATE band of the JAX ATE (bands: kitti_bands; None:
+    not held); with the port's own decisions, the keyframes against the
+    witness, if one is given (bands[2]); the ATE below KITTI_OWN_ATE_M.
+    Returns the checks and each record's distance from the JAX record."""
+    rec_band, ate_band, witness = bands
+    ref_rec = ref[f"{mode}.rec_tcw"]
+    d_t = [float(np.linalg.norm(a[:3, 3] - b[:3, 3]))
+           for a, b in zip(res["rec_tcw"], ref_rec)]
+    d_r = [rot_deg(a[:3, :3], b[:3, :3])
+           for a, b in zip(res["rec_tcw"], ref_rec)]
+    ref_census = dict(zip(ref[f"{mode}.census_labels"].tolist(),
+                          ref[f"{mode}.census_counts"].tolist()))
+    ref_sem = int(ref[f"{mode}.semantic_constraints"])
+    ref_kfs = ref[f"{mode}.kf_frames"].tolist()
+    ref_ate = float(ref[f"{mode}.ate"])
+    out = [("tracked flags", sum(res["tracked"]),
+            f"{sum(ref[f'{mode}.tracked'].tolist())} (identical)",
+            res["tracked"] == ref[f"{mode}.tracked"].tolist()),
+           ("census", res["census"], ref_census,
+            res["census"] == ref_census),
+           ("semantic constraints", res["n_sem"], f"{ref_sem} +- 10%",
+            abs(res["n_sem"] - ref_sem) <= 0.1 * ref_sem)]
+    if replay:
+        out += [("keyframes", res["kf_frames"], ref_kfs,
+                 res["kf_frames"] == ref_kfs),
+                ("record deg", round(max(d_r), 5), 0.1, max(d_r) < 0.1)]
+    if replay and rec_band is not None:
+        out += [("record mm", round(max(d_t) * 1e3, 4),
+                 round(rec_band * 1e3, 4), max(d_t) < rec_band),
+                ("ATE mm", round(res["ate"] * 1e3, 4),
+                 f"{ref_ate * 1e3:.4f} +- {ate_band * 1e3:.4f}",
+                 abs(res["ate"] - ref_ate) <= ate_band)]
+    elif witness is not None:
+        out.append(("keyframes against the witness", res["kf_frames"],
+                    witness, res["kf_frames"] == list(witness)))
+    out.append(("ATE below", round(res["ate"] * 1e3, 4),
+                KITTI_OWN_ATE_M * 1e3, res["ate"] < KITTI_OWN_ATE_M))
+    return out, d_t
+
+
+def phase_kitti(poses, frames, card, async_mapping: bool, replay: bool,
+                witness=None):
+    """The KITTI drive on the card (kitti_drive), the counts set to 0 just
+    before and read just after (two orb_describe per frame), held to the
+    JAX CPU run of the same frames (KITTI_REF, sync or async) by
+    kitti_checks; at least one abbreviated-schedule pass and, async, one
+    keyframe-barrier merge. Returns the launches and (median, mean)
+    ms/frame."""
+    mode = "async" if async_mapping else "sync"
+    name = f"KITTI {mode} " + ("replay" if replay else "own decisions")
+    ref = np.load(KITTI_REF)
+    ref_kfs = ref[f"{mode}.kf_frames"].tolist()
+    zero_counts()
+    res = kitti_drive(poses, frames, async_mapping, ref_kfs, replay)
+    launches = read_counts(name, len(frames), per_frame=2)
+    steady = np.asarray(res["times"][KITTI_WARMUP:])
+    print(f"{name} [{card}]: median {np.median(steady):.3f} ms/frame, mean "
+          f"{np.mean(steady):.3f} ms/frame after {KITTI_WARMUP} warm-up "
+          f"frames; {len(frames)} frames in {res['total_s']:.2f} s; flush "
+          f"{res['flush_ms']:.3f} ms; mapping {json.dumps(res['mapping'])}; "
+          f"mapping-thread pass ms "
+          f"{json.dumps([round(x, 1) for x in res['worker_ms']])}; launches "
+          f"{launches}", flush=True)
+    print(f"{name} frame ms: "
+          + json.dumps([round(t, 3) for t in res["times"]]), flush=True)
+    checks, d_t = kitti_checks(res, ref, mode, replay,
+                               kitti_bands(ref, mode) + (witness,))
+    dec = res["decisions"]
+    differ = [f for f in sorted(dec) if dec[f][0] != (f in ref_kfs)]
+    first = (f"first at frame {differ[0]}: own decision {dec[differ[0]][0]}"
+             f", n_inliers {dec[differ[0]][1]}, peak since the last "
+             f"keyframe {dec[differ[0]][2]}" if differ else "none")
+    print(f"{name}: KFs at {res['kf_frames']} (reference {ref_kfs}); the "
+          f"port's own decisions differ from the reference's at frames "
+          f"{differ} ({first}); per record mm "
+          f"{json.dumps([round(d * 1e3, 4) for d in d_t])}; checks "
+          + "; ".join(f"{n} {r} (limit {lim}){'' if ok else ' FAILED'}"
+                      for n, r, lim, ok in checks), flush=True)
+    bad = [n for n, _, _, ok in checks if not ok]
+    if bad:
+        fail(f"{name}: {', '.join(bad)} outside the limits")
+    st = res["mapping"]
+    if st["abbreviated"] < 1:
+        fail(f"{name}: no mapping pass ran the abbreviated schedule")
+    if async_mapping and st["barrier_merges"] < 1:
+        fail(f"{name}: no keyframe-barrier merge happened")
+    return launches, (float(np.median(steady)), float(np.mean(steady)))
+
+
+def phase_kitti_controls(poses, frames, card):
+    """The replayed drive with a fault planted in the mapping path
+    (kitti_drive's controls): each must fail at least one of the checks
+    that phase_kitti holds the real runs to, or those checks could not
+    tell a broken mapping path from a working one."""
+    ref = np.load(KITTI_REF)
+    for mode, control in (("sync", "no_local_ba"), ("async", "no_local_ba"),
+                          ("async", "drop_pass")):
+        res = kitti_drive(poses, frames, mode == "async",
+                          ref[f"{mode}.kf_frames"].tolist(), True, control)
+        checks, _ = kitti_checks(res, ref, mode, True,
+                                 kitti_bands(ref, mode) + (None,))
+        failed = [f"{n} {r} (limit {lim})" for n, r, lim, ok in checks
+                  if not ok]
+        print(f"KITTI control {mode} {control} [{card}]: fails "
+              f"{'; '.join(failed) or 'nothing'}", flush=True)
+        if not failed:
+            fail(f"KITTI control {mode} {control}: a mapping path with this "
+                 f"fault passes every check")
+
+
+def phase_kitti_objects(card):
+    """The KITTI drive on which objects form (KITTI_OBJ_REF: frames
+    KITTI_OBJ_FIRST.. of the KITTI_OBJ_DRIVE-frame street canyon, cars
+    passing within ThDepth x baseline), async mapping, objects on, the JAX
+    run's keyframe decisions replayed, the counts set to 0 just before and
+    read just after (two orb_describe per frame): tracked flags, keyframes
+    and the object census identical to the JAX CPU run's, semantic
+    constraints within 10%, records within 0.1 deg; the records' distance
+    and the ATE against the JAX run's are printed."""
+    from object_slam_tpu_torch.config import SlamConfig
+    from object_slam_tpu_torch.datasets.synthetic import render_street
+    ref = np.load(KITTI_OBJ_REF)
+    poses, frames, secs = render_street(SlamConfig.kitti_stereo(),
+                                        KITTI_OBJ_DRIVE, KITTI_OBJ_FIRST)
+    sums = [float(np.sum(f[0], dtype=np.float64)) for f in frames]
+    if not np.allclose(sums, ref["gray_sum"], rtol=1e-12, atol=0):
+        fail("KITTI objects: the rendered frames differ from the "
+             "reference run's")
+    zero_counts()
+    res = kitti_drive(poses, frames, True, ref["async.kf_frames"].tolist(),
+                      True)
+    launches = read_counts("KITTI objects", len(frames), per_frame=2)
+    checks, d_t = kitti_checks(res, ref, "async", True, (None, None, None))
+    steady = np.asarray(res["times"][KITTI_WARMUP:])
+    print(f"KITTI objects async replay [{card}]: rendered {len(frames)} "
+          f"pairs in {secs:.1f} s; median {np.median(steady):.3f} ms/frame, "
+          f"mean {np.mean(steady):.3f}; mapping "
+          f"{json.dumps(res['mapping'])}; census {res['census']}, "
+          f"semantic constraints {res['n_sem']}; ATE "
+          f"{res['ate'] * 1e3:.4f} mm (JAX "
+          f"{float(ref['async.ate']) * 1e3:.4f}); records at most "
+          f"{max(d_t) * 1e3:.4f} mm from the JAX run's; launches "
+          f"{launches}; checks "
+          + "; ".join(f"{n} {r} (limit {lim}){'' if ok else ' FAILED'}"
+                      for n, r, lim, ok in checks), flush=True)
+    bad = [n for n, _, _, ok in checks if not ok]
+    if bad:
+        fail(f"KITTI objects: {', '.join(bad)} outside the limits")
+    if not res["census"] or res["n_sem"] < 1:
+        fail("KITTI objects: no object formed")
+    return launches
+
+
+def map_diff(got, want, fields):
+    """{field: largest absolute difference (float) or count of differing
+    entries (integer)} over fields, the equal ones left out."""
+    out = {}
+    for f in fields:
+        a, b = got[f], want[f]
+        if a.dtype.kind == "f":
+            e = float(np.max(np.abs(a - b))) if a.size else 0.0
+            if e > 0:
+                out[f] = e
+        elif not np.array_equal(a, b):
+            out[f] = int(np.sum(a != b))
+    return out
+
+
+def phase_kitti_pass(card):
+    """One local-mapping pass of the KITTI sync drive (the pass on keyframe
+    3, abbreviated schedule), stage by stage on the card: each stage of
+    local_mapping.pass_stages runs on the JAX stage's output before it
+    (kitti_pass.npz) and is held to the JAX stage's output. The decision
+    stages (point culling, fusion, keyframe culling) must agree exactly;
+    triangulation and the point statistics in KITTI_PASS_LIMITS; the local
+    BA's keyframe poses within KITTI_NOISE_MARGIN times the farthest that
+    the JAX BA moves them from itself under one-ulp input noise. A planted
+    fault, the BA skipped, must fail that limit."""
+    import torch
+    from object_slam_tpu_torch import interop
+    from object_slam_tpu_torch.config import SlamConfig
+    from object_slam_tpu_torch.slam import local_mapping
+    from object_slam_tpu_torch.slam.frame import FrameBuilder
+    from object_slam_tpu_torch.slam.map_state import init_map
+
+    fx = np.load(KITTI_PASS_REF)
+    cfg = SlamConfig.kitti_stereo()
+    base = interop.map_state_to_numpy(init_map(
+        cfg.caps, cfg.objects.history_capacity, device="cpu"))
+    kf, fast = int(fx["kf"]), bool(fx["fast"])
+    names = fx["stages"].tolist()
+    states = interop.stage_maps(fx, base, names)
+    tb = FrameBuilder(cfg, device="cuda")
+
+    def T(d):
+        return interop.map_state_from_numpy(d, device="cuda")
+    W = local_mapping.covisibility(T(states["in"]))[kf]
+    stages = dict(local_mapping.pass_stages(
+        tb.K, kf, tb.scale_factors, tb.inv_sigma2, cfg, W,
+        tuple(cfg.mapping.ba_abort_iters) if fast else None))
+    if list(stages) != names:
+        fail(f"KITTI pass: stages {list(stages)}, fixture {names}")
+    prev, readings, bad = "in", {}, []
+    for n in names:
+        t0 = time.perf_counter()
+        got = interop.map_state_to_numpy(stages[n](T(states[prev])))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        want = states[n]
+        changed = sorted({k.split(".", 1)[1].split("@")[0] for k in fx.files
+                          if k.startswith(n + ".")})
+        d = map_diff(got, want, list(want))
+        readings[n] = d
+        lim = KITTI_PASS_LIMITS.get(n, {})
+        for f, v in d.items():
+            if lim.get(f, 0) is not None and v > lim.get(f, 0):
+                bad.append(f"{n} {f} {v} (limit {lim.get(f, 0)})")
+        print(f"KITTI pass on keyframe {kf} [{card}], {n} ({ms:.1f} ms; "
+              f"the JAX stage changed {changed}): against the JAX stage "
+              f"{json.dumps(d)}", flush=True)
+        prev = n
+    kv = states["local_ba"]["kf_valid"]
+
+    def kf_move(a, b):
+        return float(np.max(np.linalg.norm(
+            a["kf_pose"][kv][:, :3, 3] - b["kf_pose"][kv][:, :3, 3],
+            axis=1)))
+    ba_limit = KITTI_NOISE_MARGIN * float(np.max(fx["ba_ulp_kf_move"]))
+    got_ba = interop.map_state_to_numpy(
+        stages["local_ba"](T(states["point_stats"])))
+    port_move = kf_move(got_ba, states["local_ba"])
+    skipped = kf_move(states["point_stats"], states["local_ba"])
+    print(f"KITTI pass local BA [{card}]: keyframes {port_move * 1e3:.4f} "
+          f"mm from the JAX BA's (limit {ba_limit * 1e3:.4f} mm: "
+          f"{KITTI_NOISE_MARGIN} x the JAX BA against itself under one-ulp "
+          f"input noise, "
+          f"{json.dumps([round(x * 1e3, 4) for x in fx['ba_ulp_kf_move']])}"
+          f" mm); control, the BA skipped: {skipped * 1e3:.4f} mm",
+          flush=True)
+    if port_move > ba_limit:
+        bad.append(f"local_ba kf_pose {port_move} m (limit {ba_limit} m)")
+    if not skipped > ba_limit:
+        bad.append(f"control: the BA skipped lands {skipped} m from the "
+                   f"JAX BA, within the limit {ba_limit} m")
+    if bad:
+        fail("KITTI pass: " + "; ".join(bad))
+    return readings, port_move, skipped
+
+
+def phase_kitti_driver(poses, frames, card,
+                       n_frames: int = KITTI_DRIVER_FRAMES):
+    """scripts/run_kitti_torch.py, in this process, on a KITTI directory of
+    the first n_frames frames with a YOLACT-format semantic folder
+    (written under build/), the counts set to 0 just before and read just
+    after (two orb_describe per frame). Checks the three output files and
+    the JSON summary."""
+    import contextlib
+    import io
+    import runpy
+    import shutil
+    from object_slam_tpu_torch.datasets.kitti import write_sequence
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    seq = os.path.join(root, "build", "kitti_smoke", "seq")
+    res_dir = os.path.join(root, "build", "kitti_smoke", "out")
+    shutil.rmtree(os.path.dirname(seq), ignore_errors=True)
+    t0 = time.perf_counter()
+    write_sequence(seq, poses[:n_frames], frames[:n_frames])
+    write_s = time.perf_counter() - t0
+    argv = sys.argv
+    sys.argv = ["run_kitti_torch.py", "--seq", seq, "--gt",
+                os.path.join(seq, "gt.txt"), "--semantic-dir",
+                os.path.join(seq, "semantic"), "--out", res_dir]
+    buf = io.StringIO()
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(os.path.join(root, "scripts",
+                                        "run_kitti_torch.py"),
+                           run_name="__main__")
+    finally:
+        sys.argv = argv
+    run_s = time.perf_counter() - t0
+    launches = read_counts("KITTI driver", n_frames, per_frame=2)
+    lines = buf.getvalue().strip().splitlines()
+    try:
+        res = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        fail(f"KITTI driver: no JSON summary in {lines[-3:]}")
+    print(f"KITTI driver [{card}]: wrote {n_frames} frames in {write_s:.1f} "
+          f"s, ran in {run_s:.1f} s; summary {json.dumps(res)}; launches "
+          f"{launches}", flush=True)
+    cam = open(os.path.join(res_dir, "CameraTrajectory.txt")).read()
+    kf = open(os.path.join(res_dir, "KeyFrameTrajectory.txt")).read()
+    info = open(os.path.join(res_dir, "ObjectInfo.txt")).read().splitlines()
+    if len(cam.splitlines()) != n_frames or not kf.strip():
+        fail(f"KITTI driver: {len(cam.splitlines())} camera poses, keyframe "
+             f"file {len(kf)} bytes")
+    if not (info and info[-1].startswith("semantic_constraints: ")):
+        fail(f"KITTI driver: ObjectInfo.txt reads {info}")
+    if (res.get("frames") != n_frames or res.get("tracked") != n_frames
+            or not res.get("keyframes", 0) >= 2 or not res["async_mapping"]):
+        fail(f"KITTI driver: summary {res}")
+    if not res.get("ate_rmse", 1.0) < 0.05:
+        fail(f"KITTI driver: ATE {res.get('ate_rmse')}")
+    return launches
+
+
 def main():
     try:
         import torch
@@ -973,9 +1437,31 @@ def main():
     print(f"rendered {N_FRAMES} frames in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+    from object_slam_tpu_torch.config import SlamConfig
+    from object_slam_tpu_torch.datasets.synthetic import render_street
+    kcfg = SlamConfig.kitti_stereo()
+    kitti_poses, kitti_frames, render_s = render_street(kcfg, KITTI_FRAMES)
+    ref = np.load(KITTI_REF)
+    for key, side in (("gray_sum", 0), ("gray_r_sum", 1)):
+        sums = [float(np.sum(f[side], dtype=np.float64))
+                for f in kitti_frames]
+        if not np.allclose(sums, ref[key], rtol=1e-12, atol=0):
+            fail("KITTI: the rendered frames differ from the reference run's")
+    print(f"rendered {KITTI_FRAMES} KITTI stereo pairs (1241x376) in "
+          f"{render_s:.1f} s with a pool of "
+          f"{min(os.cpu_count() or 1, 8)} processes", flush=True)
+
     ex, levels, corners = main_path_inputs(cfg, frames[0][0])
     rows = [phase_patches(levels, corners),
             phase_describe(ex, levels, corners)]
+    # orb_describe at the KITTI shapes: the left image of the first pair,
+    # 2048 keypoints over 8 levels
+    kex, klevels, kcorners = main_path_inputs(
+        kcfg, kitti_frames[0][0].astype(np.float32))
+    kitti_row = phase_describe(kex, klevels, kcorners, tag="KITTI left")
+    rows[1]["kitti"] = {k: kitti_row[k] for k in (
+        "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+        "bound_by")}
     # every path: the counts set to 0 just before it, read just after
     by_phase = {}
     by_phase["strict_objects_off"] = run_path(cfg, poses, frames, sems,
@@ -984,7 +1470,6 @@ def main():
         cfg, poses, frames, sems, card)
     # the main path as bench.py runs it: the default configuration
     # (pipelined readback), blobs, objects on
-    from object_slam_tpu_torch.config import SlamConfig
     main_cfg = SlamConfig.tum_rgbd()
     bench = phase_bench(main_cfg, poses, frames, sems, card, strict_ms)
     by_phase["bench_host_in_the_loop"] = bench["host"][0]
@@ -993,6 +1478,30 @@ def main():
     by_phase["kidnap_replay"] = kid["replay"]
     by_phase["kidnap_own_sampler"] = kid["own"]
     by_phase["tum_driver"] = phase_tum(main_cfg, poses, frames, sems, card)
+    # KITTI stereo at full width: one mapping pass stage by stage; inline
+    # then async mapping, each with the reference's keyframe decisions
+    # replayed and with its own; planted faults; then the driver
+    phase_kitti_pass(card)
+    kitti_ms = {}
+    for mode in ("sync", "async"):
+        for replay in (True, False):
+            key = f"kitti_{mode}_" + ("replay" if replay else "own")
+            by_phase[key], kitti_ms[key] = phase_kitti(
+                kitti_poses, kitti_frames, card, mode == "async", replay,
+                witness=KITTI_WITNESS_KFS[mode])
+    phase_kitti_controls(kitti_poses, kitti_frames, card)
+    by_phase["kitti_objects"] = phase_kitti_objects(card)
+    print(f"KITTI [{card}]: ms/frame median / mean, own decisions: sync "
+          f"{kitti_ms['kitti_sync_own'][0]:.3f} / "
+          f"{kitti_ms['kitti_sync_own'][1]:.3f}, async "
+          f"{kitti_ms['kitti_async_own'][0]:.3f} / "
+          f"{kitti_ms['kitti_async_own'][1]:.3f}; replay: sync "
+          f"{kitti_ms['kitti_sync_replay'][0]:.3f} / "
+          f"{kitti_ms['kitti_sync_replay'][1]:.3f}, async "
+          f"{kitti_ms['kitti_async_replay'][0]:.3f} / "
+          f"{kitti_ms['kitti_async_replay'][1]:.3f}", flush=True)
+    by_phase["kitti_driver"] = phase_kitti_driver(kitti_poses, kitti_frames,
+                                                  card)
     for row in rows:
         row["launches"] = by_phase["bench_host_in_the_loop"][row["name"]]
         row["launches_per_frame"] = row["launches"] // N_FRAMES
@@ -1003,6 +1512,10 @@ def main():
         for k in timed:
             if not (isinstance(row[k], float) and math.isfinite(row[k])):
                 fail(f"{row['name']} row field {k} is not a finite number")
+        for k, v in row.get("kitti", {}).items():
+            if k != "bound_by" and not (isinstance(v, float)
+                                        and math.isfinite(v)):
+                fail(f"{row['name']} KITTI field {k} is not a finite number")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

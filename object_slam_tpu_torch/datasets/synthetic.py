@@ -1,9 +1,11 @@
 """Synthetic RGB-D / stereo scene generator for tests and benchmarks.
 
 A numpy copy of the parts of object_slam_tpu/datasets/synthetic.py that
-the port's tests and chip_smoke.py use (scene, RGB-D render, detection
-slab, orbit trajectory), so the port renders the same frames from the same seed
-without importing the JAX package.
+the port's tests and chip_smoke.py use (scene, RGB-D and stereo render,
+detection slab, the orbit and drive trajectories, the street canyon of
+scripts/make_synth_kitti.py and its rendering by a process pool), so the
+port renders the same frames from
+the same seed without importing the JAX package.
 
 The reference repository ships no data (images/masks are external
 downloads, README.md:64); correctness here is established on synthetic
@@ -14,6 +16,7 @@ scene generator that SURVEY.md §4 calls for.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import List
 
@@ -454,6 +457,17 @@ class SyntheticScene:
             valid.append(True)
         return img, depth, rgb, (masks, labels, probs, bboxes, valid)
 
+    def render_stereo(self, Tcw: np.ndarray):
+        """Rectified stereo pair: the right camera sits +baseline along
+        the left camera's x-axis (baseline = bf / fx, the KITTI/EuRoC
+        convention). Returns (gray_l, gray_r, depth_l, rgb_l, sem_l)."""
+        gray_l, depth_l, rgb_l, sem_l = self.render_rgbd(Tcw)
+        b = self.bf / self.fx
+        T_r = Tcw.copy()
+        T_r[:3, 3] = Tcw[:3, 3] - np.array([b, 0.0, 0.0], Tcw.dtype)
+        gray_r, _, _, _ = self.render_rgbd(T_r)
+        return gray_l, gray_r, depth_l, rgb_l, sem_l
+
     def sem_arrays(self, sem, max_instances):
         """render_rgbd's detection lists -> the static [I] slab
         (masks, labels, probs, bboxes, valid) that track_rgbd takes."""
@@ -481,3 +495,74 @@ def orbit_poses(n: int, radius: float = 0.4, step: float = 0.03):
         T[:3, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
         poses.append(T)
     return poses
+
+
+def drive_trajectory(n: int, speed: float = 0.8, yaw_rate: float = 0.002,
+                     start_z: float = 0.0):
+    """Forward 'driving' motion with a gentle curve (KITTI-style): the
+    camera advances along +z at `speed` world units per frame, yawing
+    yaw_rate rad/frame. Pose 0 is the identity; world->camera poses."""
+    poses = []
+    C = np.array([0.0, 0.0, start_z], np.float64)
+    psi = 0.0
+    for i in range(n):
+        c, s = np.cos(psi), np.sin(psi)
+        Rwc = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float64)
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = Rwc.T.astype(np.float32)
+        T[:3, 3] = (-Rwc.T @ C).astype(np.float32)
+        poses.append(T)
+        C = C + Rwc @ np.array([0.0, 0.0, speed])
+        psi += yaw_rate
+    return poses
+
+
+def street_scene(cfg, n_frames: int, speed: float = 0.8, seed: int = 5,
+                 n_objects: int = 6):
+    """scripts/make_synth_kitti.py's street canyon for an n_frames drive:
+    drive_trajectory(n_frames, speed), scale 8, 24 roadside structures and
+    n_objects car boxes (label 2). Returns (scene, poses)."""
+    poses = drive_trajectory(n_frames, speed=speed)
+    centers = np.stack([np.linalg.inv(T)[:3, 3] for T in poses])
+    scene = SyntheticScene.make(
+        cfg, seed=seed, n_objects=n_objects, plane_z=4.0, scale=8.0,
+        n_structures=24, corridor_len=float(n_frames * speed + 20.0),
+        path=centers)
+    for b in scene.boxes:
+        b["label"] = 2
+    return scene, poses
+
+
+_STREET_WORKER = {}
+
+
+def _street_worker_init(cfg, n_frames: int):
+    _STREET_WORKER["scene"] = street_scene(cfg, n_frames)[0]
+    _STREET_WORKER["instances"] = cfg.semantic.max_instances
+
+
+def _street_render(T):
+    scene = _STREET_WORKER["scene"]
+    gl, gr, _, _, sem = scene.render_stereo(T)
+    return (np.clip(gl, 0, 255).astype(np.uint8),
+            np.clip(gr, 0, 255).astype(np.uint8),
+            scene.sem_arrays(sem, _STREET_WORKER["instances"]))
+
+
+def render_street(cfg, n_frames: int, first: int = 0,
+                  last: int | None = None, workers: int | None = None):
+    """Frames first..last-1 of street_scene(cfg, n_frames)'s drive as
+    KITTI's PNGs hold them: (poses, [(gray_l u8, gray_r u8, the left
+    view's sem_arrays slab)], seconds). A pool of spawned processes
+    renders them (each builds the scene from the seed), as
+    scripts/make_synth_kitti.py does."""
+    import multiprocessing as mp
+    import time
+    poses = drive_trajectory(n_frames)[first:last]
+    workers = workers or min(os.cpu_count() or 1, 8)
+    t0 = time.perf_counter()
+    with mp.get_context("spawn").Pool(
+            workers, initializer=_street_worker_init,
+            initargs=(cfg, n_frames)) as pool:
+        frames = pool.map(_street_render, poses, chunksize=1)
+    return poses, frames, time.perf_counter() - t0

@@ -5,7 +5,8 @@ rgb/depth pairing by timestamp (rgbd_tum.cc:33-76 reads the association),
 the ground truth, and the per-frame YOLACT semantic directory
 (Semantic.cc:57). Images are decoded by datasets/png.py; the frame arrays
 stay in their compact transfer types (u8 rgb, raw u16 depth), which the
-frame builder converts on the device.
+frame builder converts on the device. ``write_sequence`` writes such a
+directory from rendered frames.
 """
 
 from __future__ import annotations
@@ -16,8 +17,9 @@ from typing import List, Tuple
 
 import numpy as np
 
-from object_slam_tpu_torch.datasets.png import read_png
+from object_slam_tpu_torch.datasets.png import read_png, write_png
 from object_slam_tpu_torch.eval.ate import associate_timestamps
+from object_slam_tpu_torch.eval.trajectory_io import _rot_to_quat
 from object_slam_tpu_torch.semantic import loader as sem_loader
 
 
@@ -84,3 +86,43 @@ def load_semantics(semantic_dir: str, timestamp: float, cfg):
         cfg.semantic.min_confidence, cfg.semantic.valid_labels_tum)
     return sem_loader.detections_to_arrays(
         dets, cfg.semantic.max_instances, cfg.camera.height, cfg.camera.width)
+
+
+def write_sequence(out: str, poses, renders, depth_map_factor: float,
+                   t0: float = 1000.0):
+    """A TUM-format sequence as scripts/make_synth_tum.py writes it: rgb/
+    and depth/ PNGs (u8 rgb, raw u16 depth = metric x depth_map_factor),
+    rgb.txt, depth.txt, groundtruth.txt (30 Hz from t0) and a
+    YOLACT-format semantic/ folder (each valid detection's line and its
+    0/255 mask). poses: world-to-camera [4, 4]; renders: per pose (depth
+    [H, W] metric, rgb [H, W, 3], the frame's sem_arrays slab)."""
+    for sub in ("rgb", "depth", "semantic"):
+        os.makedirs(os.path.join(out, sub), exist_ok=True)
+    rgb_lines, depth_lines, gt_lines = [], [], []
+    for i, (T, (depth, rgb, sem)) in enumerate(zip(poses, renders)):
+        key = f"{t0 + i / 30.0:.6f}"
+        write_png(os.path.join(out, "rgb", key + ".png"),
+                  np.clip(rgb, 0, 255).astype(np.uint8))
+        write_png(os.path.join(out, "depth", key + ".png"),
+                  np.clip(depth * depth_map_factor, 0,
+                          65535).astype(np.uint16))
+        rgb_lines.append(f"{key} rgb/{key}.png")
+        depth_lines.append(f"{key} depth/{key}.png")
+        Twc = np.linalg.inv(T)
+        t, q = Twc[:3, 3], _rot_to_quat(Twc[:3, :3])
+        gt_lines.append(f"{key} {t[0]:.6f} {t[1]:.6f} {t[2]:.6f} "
+                        f"{q[0]:.6f} {q[1]:.6f} {q[2]:.6f} {q[3]:.6f}")
+        masks, labels, probs, bboxes, valid = sem
+        fdir = os.path.join(out, "semantic", key)
+        os.makedirs(fdir, exist_ok=True)
+        with open(os.path.join(fdir, key + ".txt"), "w") as f:
+            for j in np.flatnonzero(valid):
+                x, y, w, h = bboxes[j]
+                f.write(f"{labels[j]} {probs[j]:.3f} {int(x)} {int(y)} "
+                        f"{int(w)} {int(h)} {j}\n")
+                write_png(os.path.join(fdir, f"{j}.png"),
+                          (np.asarray(masks[j]) * 255).astype(np.uint8))
+    for name, lines in (("rgb.txt", rgb_lines), ("depth.txt", depth_lines),
+                        ("groundtruth.txt", gt_lines)):
+        with open(os.path.join(out, name), "w") as f:
+            f.write("# synthetic\n" + "\n".join(lines) + "\n")

@@ -52,6 +52,50 @@ def map_state_to_numpy(m: MapState) -> dict:
     return {f: _to_numpy(f, getattr(m, f)) for f in MapState._fields}
 
 
+def overlay_rows(base: Mapping[str, np.ndarray],
+                 rows: Mapping[str, np.ndarray]) -> dict:
+    """base's numpy fields with each field of rows laid over its leading
+    rows; a scalar, or a field whose leading size is base's, replaces it.
+    The inverse of trimming a map's trailing rows that equal those of
+    base (the map as init_map leaves it), which keeps a reference map of
+    65,536 points and 1,024 keyframes small on disk."""
+    out = dict(base)
+    for f, v in rows.items():
+        if v.ndim == 0 or v.shape[0] == base[f].shape[0]:
+            out[f] = v
+        else:
+            full = base[f].copy()
+            full[:v.shape[0]] = v
+            out[f] = full
+    return out
+
+
+def stage_maps(arrays: Mapping[str, np.ndarray], base, names) -> dict:
+    """The maps of a recorded local-mapping pass (make_reference.py
+    ``kitti_pass``): "in", the pass's input, as trimmed rows over base
+    (overlay_rows); then per stage name in order, the rows it changed in
+    the map before it: ``<name>.<field>@idx`` (row indices) and
+    ``<name>.<field>@rows``, or ``<name>.<field>`` whole. Returns {name:
+    numpy map}."""
+    def under(prefix):
+        return {k[len(prefix) + 1:]: arrays[k] for k in arrays.files
+                if k.startswith(prefix + ".")}
+    maps = {"in": overlay_rows(base, under("in"))}
+    prev = maps["in"]
+    for name in names:
+        cur = dict(prev)
+        for k, v in under(name).items():
+            f, _, part = k.partition("@")
+            if not part:
+                cur[f] = v
+            elif part == "idx":
+                a = prev[f].copy()
+                a[v] = under(name)[f + "@rows"]
+                cur[f] = a
+        maps[name] = prev = cur
+    return maps
+
+
 def keypoints_from_numpy(arrays: Mapping[str, np.ndarray],
                          device=None) -> Keypoints:
     device = resolve_device(device)

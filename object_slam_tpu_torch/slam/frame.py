@@ -8,8 +8,10 @@ on the device, then ``build_object2ds``), the others the object-free
 ingestion packs a frame's device-bound arrays into one uint8 blob on the
 host (``pack_frame_blob``, the reference's byte layout), moves it with one
 copy from pinned memory (``upload_blob``) and reinterprets its slices on
-the device (``_unpack_blob``). The stereo and mono builders wait for later
-slices.
+the device (``_unpack_blob``). ``build_stereo`` extracts both images,
+matches them (``features/stereo.py::match_stereo``) and always builds the
+Object2D slab, as the reference's stereo build does. The mono builder
+waits for a later slice.
 """
 
 from __future__ import annotations
@@ -245,6 +247,50 @@ class FrameBuilder:
                 min_kps=cfg.semantic.min_kps_rgbd,
                 mask_margin=cfg.semantic.mask_margin)
         return self._assemble(kp, uv_und, ur, depth, obj, timestamp)
+
+    # ------------------------------------------------------------------
+    def build_stereo(self, gray_l, gray_r, rgb, sem_arrays, timestamp):
+        """gray_l / gray_r [H, W] rectified pair (u8 or float); rgb
+        [H, W, 3] or None (a grayscale rig: the histograms' input is the
+        left image stacked three times, made on the device); sem_arrays
+        the detection slab or None (no detections)."""
+        if sem_arrays is None:
+            sem_arrays = self.empty_semantics()
+        return self._build_stereo(gray_l, gray_r, rgb,
+                                  *self.pack_sem_arrays(sem_arrays),
+                                  timestamp)
+
+    def _build_stereo(self, gray_l, gray_r, rgb, masks_packed, labels, probs,
+                      bboxes, inst_valid, timestamp) -> FrameData:
+        cfg = self.cfg
+        masks = o2d_mod.unpack_mask_bits(self._tensor(masks_packed),
+                                         cfg.camera.width)
+        gray_l = self._image(gray_l).contiguous()
+        gray_r = self._image(gray_r).contiguous()
+        rgb = (torch.stack([gray_l] * 3, -1) if rgb is None
+               else self._image(rgb))
+        kp_l = self.extractor(gray_l)
+        kp_r = self.extractor(gray_r)
+        uv_und = cam_mod.undistort_points(self.K, kp_l.uv)
+        with torch.profiler.record_function("match_stereo"):
+            ur, depth, ok = stereo_mod.match_stereo(
+                kp_l.uv, kp_l.level, kp_l.desc, kp_l.valid,
+                kp_r.uv, kp_r.level, kp_r.desc, kp_r.valid,
+                gray_l, gray_r, self.scale_factors,
+                float(self.K.bf), float(self.K.fx),
+                min_z=cfg.camera.baseline)
+        depth = torch.where(ok, depth, torch.full_like(depth, -1.0))
+        with torch.profiler.record_function("object2d"):
+            obj = o2d_mod.build_object2ds(
+                rgb, masks, self._tensor(labels), self._image(probs),
+                self._image(bboxes), self._tensor(inst_valid).to(torch.bool),
+                kp_l.uv, depth, kp_l.valid,
+                th_depth=cfg.camera.th_depth * cfg.camera.baseline,
+                min_kps=cfg.semantic.min_kps_stereo,
+                mask_margin=cfg.semantic.mask_margin)
+        # the rectified stereo datasets have no distortion, so the raw ur
+        # is kept (the reference's comment at frame.py:297-298)
+        return self._assemble(kp_l, uv_und, ur, depth, obj, timestamp)
 
     def _assemble(self, kp: Keypoints, uv_und, ur, depth, obj,
                   timestamp) -> FrameData:

@@ -171,33 +171,51 @@ def run_local_ba(K, m: MapState, kf_id, window: int, n_fixed: int,
                                          m.pt_obj))
 
 
-def process_new_keyframe(K, m: MapState, kf_id, scale_factors,
-                         inv_sigma2_lvl, cfg, ba_iters=None) -> MapState:
-    """The LocalMapping pipeline for one keyframe."""
-    W_row = covisibility(m)[kf_id]
-    m = map_ops.cull_points(m, kf_id,
-                            recency_scope=cfg.mapping.cull_recency_scope)
-    m = map_ops.triangulate_new_points(
-        m, kf_id, n_neighbors=5, K=K, inv_sigma2_lvl=inv_sigma2_lvl,
-        scale_factors=scale_factors, W_row=W_row)
-    m = map_ops.fuse_into_neighbors(
-        m, kf_id, n_neighbors=5, K=K, scale_factors=scale_factors,
-        inv_sigma2_lvl=inv_sigma2_lvl, W_row=W_row)
-    if cfg.mapping.reelect_descriptors:
+def pass_stages(K, kf_id, scale_factors, inv_sigma2_lvl, cfg, W_row,
+                ba_iters=None):
+    """The LocalMapping pipeline for one keyframe as named stages, each a
+    function MapState -> MapState, in the order process_new_keyframe
+    runs them. W_row is covisibility(m)[kf_id] of the pass's input map,
+    computed once and shared by every stage."""
+
+    def stats(m):
+        if not cfg.mapping.reelect_descriptors:
+            return m
         Kcap = m.kf_kp_pt.shape[0]
         _, stat_nbrs = map_ops._neighbors(m, kf_id, min(15, Kcap), W_row)
         kf_sel_stats = torch.cat([torch.tensor([int(kf_id)],
                                                device=stat_nbrs.device),
                                   stat_nbrs])
-        m = recompute_point_stats_windowed(m, kf_sel_stats,
-                                           cap=cfg.caps.local_pt_cap)
+        return recompute_point_stats_windowed(m, kf_sel_stats,
+                                              cap=cfg.caps.local_pt_cap)
+
     it1, it2 = ba_iters if ba_iters is not None else (5, 10)
-    m = run_local_ba(m=m, K=K, kf_id=kf_id,
-                     window=cfg.caps.local_window_kf, n_fixed=8,
-                     inv_sigma2_lvl=inv_sigma2_lvl, iters1=it1, iters2=it2,
-                     pt_cap=cfg.caps.local_pt_cap, W_row=W_row,
-                     obs_cap=cfg.caps.local_obs_per_kf)
-    m = map_ops.cull_keyframes(
-        m, kf_id, scale_condition=cfg.mapping.kf_cull_scale_condition,
-        n_levels=cfg.orb.n_levels, W_row=W_row)
+    return [
+        ("cull_points", lambda m: map_ops.cull_points(
+            m, kf_id, recency_scope=cfg.mapping.cull_recency_scope)),
+        ("triangulate", lambda m: map_ops.triangulate_new_points(
+            m, kf_id, n_neighbors=5, K=K, inv_sigma2_lvl=inv_sigma2_lvl,
+            scale_factors=scale_factors, W_row=W_row)),
+        ("fuse", lambda m: map_ops.fuse_into_neighbors(
+            m, kf_id, n_neighbors=5, K=K, scale_factors=scale_factors,
+            inv_sigma2_lvl=inv_sigma2_lvl, W_row=W_row)),
+        ("point_stats", stats),
+        ("local_ba", lambda m: run_local_ba(
+            m=m, K=K, kf_id=kf_id, window=cfg.caps.local_window_kf,
+            n_fixed=8, inv_sigma2_lvl=inv_sigma2_lvl, iters1=it1,
+            iters2=it2, pt_cap=cfg.caps.local_pt_cap, W_row=W_row,
+            obs_cap=cfg.caps.local_obs_per_kf)),
+        ("cull_keyframes", lambda m: map_ops.cull_keyframes(
+            m, kf_id, scale_condition=cfg.mapping.kf_cull_scale_condition,
+            n_levels=cfg.orb.n_levels, W_row=W_row)),
+    ]
+
+
+def process_new_keyframe(K, m: MapState, kf_id, scale_factors,
+                         inv_sigma2_lvl, cfg, ba_iters=None) -> MapState:
+    """The LocalMapping pipeline for one keyframe (pass_stages in order)."""
+    W_row = covisibility(m)[kf_id]
+    for _, stage in pass_stages(K, kf_id, scale_factors, inv_sigma2_lvl,
+                                cfg, W_row, ba_iters):
+        m = stage(m)
     return m

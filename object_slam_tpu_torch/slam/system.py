@@ -1,8 +1,9 @@
-"""System facade: the per-frame orchestration loop (RGB-D).
+"""System facade: the per-frame orchestration loop (RGB-D and stereo).
 
 Counterpart of object_slam_tpu/slam/system.py. ``track_rgbd`` builds the
 frame from arrays, ``track_rgbd_blob`` from one uint8 blob
-(``FrameBuilder.pack_frame_blob``). The first frame with enough depth
+(``FrameBuilder.pack_frame_blob``), ``track_stereo`` from a rectified
+pair. The first frame with enough depth
 initializes the map (``_stereo_init_impl``, then the object update). A
 frame tracked while the state is OK runs the fused tracking chain, with
 the object stages as its hooks when objects are on (``_track_fused``); its
@@ -16,9 +17,15 @@ takes the staged path (``_track_staged``), whose failure branch
 relocalizes against the whole map (``_relocalize``: brute match, PnP
 RANSAC).
 
+With ``async_mapping=True`` each keyframe's local-mapping pass runs on a
+snapshot of the map in a worker thread with its own CUDA stream (the
+LocalMapping thread's analogue, ``_AsyncMapping``) while tracking goes on;
+the result is merged in at the next keyframe, when ready on the staged
+path, and at ``flush_mapping``.
+
 Not in this slice, and raising ``NotImplementedError`` with the ROADMAP
 item that ports them: loop closing and the vocabulary relocalization,
-async mapping, stereo and mono sensors, localization mode.
+the mono sensor, localization mode.
 
 State machine (Tracking.h:99-105): NOT_INITIALIZED -> OK <-> LOST.
 """
@@ -27,6 +34,7 @@ from __future__ import annotations
 
 import math
 import time
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import List, Optional
@@ -42,7 +50,7 @@ from object_slam_tpu_torch.ops.scatter import scatter_set, topk
 from object_slam_tpu_torch.slam import local_mapping, map_ops
 from object_slam_tpu_torch.slam import tracking as trk
 from object_slam_tpu_torch.slam.frame import FrameBuilder, FrameData
-from object_slam_tpu_torch.slam.map_state import init_map
+from object_slam_tpu_torch.slam.map_state import MapState, init_map
 from object_slam_tpu_torch.slam.objects import ObjectEngine
 from object_slam_tpu_torch.solvers import ransac
 from object_slam_tpu_torch.solvers.epnp import pnp_ransac_sets
@@ -65,6 +73,123 @@ class FrameRecord:
     tracked: bool
 
 
+class _AsyncMapping:
+    """The local-mapping pass off the tracking path: the LocalMapping
+    thread's analogue (LocalMapping.cc:48-113) and the reference's
+    ``_AsyncMapping`` (object_slam_tpu/slam/system.py:195-262).
+
+    ``dispatch`` runs the pass on a snapshot of the map in a worker thread.
+    The port's pass reads the device on the host (the BA early exits, the
+    keyframe-culling loop), so it cannot be queued on a stream and left: it
+    needs a host thread. On the card the thread runs on its own stream,
+    which first waits on an event recorded on the tracker's stream at
+    dispatch (the snapshot is complete there). The snapshot's tensors are
+    recorded on the side stream, the result's on the tracker's stream at
+    merge, so the caching allocator never hands memory one stream still
+    reads to the other; the pending tuple holds the snapshot until the
+    merge. ``merge`` joins the thread, makes the current stream wait on the
+    pass's done event, then overlays what the tracker wrote meanwhile (the
+    additive point counters and the object slabs). A failure in the worker
+    is raised again by ``ready``, ``merge`` and ``join``. On the CPU the
+    same code runs without streams."""
+
+    def __init__(self, run, device):
+        self.run = run                  # run(m, kf_id, fast) -> MapState
+        self.device = device
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+        self._pool = ThreadPoolExecutor(max_workers=1,
+                                        thread_name_prefix="local-mapping")
+        self.pending = None   # (future, snapshot, done event or None)
+        self.worker_ms: List[float] = []
+
+    @staticmethod
+    def _merge_impl(res, m_now, s_vis, s_found, s_lc, s_lt):
+        """The mapping result with the tracker's in-flight writes laid over
+        it: the additive counters as result + (now - snapshot), point
+        ownership where the result's point is valid, and every object field
+        from the live map."""
+        obj_fields = {f: getattr(m_now, f) for f in MapState._fields
+                      if f.startswith("obj_")}
+        return res._replace(
+            pt_visible=res.pt_visible + (m_now.pt_visible - s_vis),
+            pt_found=res.pt_found + (m_now.pt_found - s_found),
+            pt_label_cnt=res.pt_label_cnt + (m_now.pt_label_cnt - s_lc),
+            pt_label_tot=res.pt_label_tot + (m_now.pt_label_tot - s_lt),
+            pt_obj=torch.where(res.pt_valid, m_now.pt_obj,
+                               torch.full_like(m_now.pt_obj, -1)),
+            n_obj=m_now.n_obj, next_track_id=m_now.next_track_id,
+            **obj_fields)
+
+    def _work(self, m, kf_id, fast, start, done):
+        t0 = time.perf_counter()
+        with torch.profiler.record_function("local_mapping_async"):
+            if self.stream is None:
+                res = self.run(m, kf_id, fast)
+            else:
+                with torch.cuda.stream(self.stream):
+                    self.stream.wait_event(start)
+                    res = self.run(m, kf_id, fast)
+                    done.record(self.stream)
+        self.worker_ms.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    def dispatch(self, m: MapState, kf_id: int, fast: bool):
+        """Start the pass for keyframe kf_id on the snapshot m (the map the
+        insertion returned; nothing writes to its tensors in place)."""
+        if self.pending is not None:
+            raise RuntimeError("a mapping pass is already in flight; merge "
+                               "it before dispatching another")
+        start = done = None
+        if self.stream is not None:
+            start, done = torch.cuda.Event(), torch.cuda.Event()
+            start.record(torch.cuda.current_stream(self.device))
+            for t in m:
+                t.record_stream(self.stream)
+        fut = self._pool.submit(self._work, m, kf_id, fast, start, done)
+        self.pending = (fut, m, done)
+
+    def ready(self) -> bool:
+        """True when a pass is pending, its thread has finished and its
+        device work is complete; a failed pass raises here."""
+        if self.pending is None:
+            return False
+        fut, _, done = self.pending
+        if not fut.done():
+            return False
+        fut.result()                     # raises the worker's exception
+        return done is None or done.query()
+
+    def merge(self, m_now: MapState) -> MapState:
+        """Join the pending pass and return its result with the tracker's
+        writes since the dispatch laid over it (m_now when none is
+        pending)."""
+        if self.pending is None:
+            return m_now
+        fut, snap, done = self.pending
+        self.pending = None
+        res = fut.result()
+        if done is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(done)
+            for t in res:
+                t.record_stream(cur)
+        return self._merge_impl(res, m_now, snap.pt_visible, snap.pt_found,
+                                snap.pt_label_cnt, snap.pt_label_tot)
+
+    def join(self):
+        """Wait for a pending pass and drop it (reset); a failed pass
+        raises."""
+        if self.pending is None:
+            return
+        fut = self.pending[0]
+        self.pending = None
+        fut.result()
+
+    def close(self):
+        self._pool.shutdown(wait=True)
+
+
 class SlamSystem:
     def __init__(self, cfg: Optional[SlamConfig] = None,
                  enable_objects: bool = True,
@@ -76,15 +201,11 @@ class SlamSystem:
         cfg = self.cfg
         if enable_loop:
             raise _not_in_slice("enable_loop=True", "loop closing")
-        if async_mapping:
-            raise _not_in_slice("async_mapping=True",
-                                "stereo/KITTI with async mapping")
         if not enable_mapping:
             raise _not_in_slice("localization mode (enable_mapping=False)",
                                 "checkpoint, localization mode and reset")
-        if cfg.sensor != "rgbd":
-            raise _not_in_slice(f"sensor={cfg.sensor!r}",
-                                "stereo/KITTI and mono")
+        if cfg.sensor not in ("rgbd", "stereo"):
+            raise _not_in_slice(f"sensor={cfg.sensor!r}", "mono")
         self.device = resolve_device(device)
         self.builder = FrameBuilder(cfg, device=self.device)
         self.K = self.builder.K
@@ -124,6 +245,13 @@ class SlamSystem:
         # per-stage host time (ms), synchronized per span when profiling
         self.profile = profile
         self.stage_ms: dict = {}
+        # local-mapping passes run / on the abbreviated schedule, and the
+        # async merges by where they happened
+        self.mapping_stats = {"passes": 0, "abbreviated": 0,
+                              "barrier_merges": 0, "ready_merges": 0,
+                              "flush_merges": 0}
+        self._async = (_AsyncMapping(self._mapping_pass, self.device)
+                       if async_mapping else None)
 
     def _eye(self):
         return torch.eye(4, dtype=torch.float32, device=self.device)
@@ -171,6 +299,16 @@ class SlamSystem:
         inst_valid the host's detection flags (None: no detections)."""
         with self._span("frame_build"):
             frame = self.builder.build_rgbd_blob(blob, inst_valid, timestamp)
+        self._host_ts = float(timestamp)
+        return self._track_and_emit(frame)
+
+    def track_stereo(self, gray_l, gray_r, rgb, sem_arrays=None,
+                     timestamp=0.0):
+        """gray_l / gray_r [H, W] rectified pair (u8 or float, numpy or
+        tensors); rgb [H, W, 3] or None (grayscale rig)."""
+        with self._span("frame_build"):
+            frame = self.builder.build_stereo(gray_l, gray_r, rgb,
+                                              sem_arrays, timestamp)
         self._host_ts = float(timestamp)
         return self._track_and_emit(frame)
 
@@ -256,24 +394,34 @@ class SlamSystem:
                                        self.scale_factors, spawn,
                                        frame_id=frame_id)
 
-    def _mapping_fn(self, kf_gap: int):
-        """The full local-mapping pass, or the abbreviated local-BA
-        schedule when keyframes arrive within ba_abort_pressure_gap frames
-        (the mbAbortBA analogue)."""
+    def _fast_schedule(self, kf_gap: int) -> bool:
+        """The abbreviated local-BA schedule when keyframes arrive within
+        ba_abort_pressure_gap frames (the mbAbortBA analogue)."""
         gap_cfg = self.cfg.mapping.ba_abort_pressure_gap
-        ba_iters = None
-        if gap_cfg > 0 and kf_gap < gap_cfg:
-            ba_iters = tuple(self.cfg.mapping.ba_abort_iters)
+        return gap_cfg > 0 and kf_gap < gap_cfg
 
-        def run(m, kf_id):
-            return local_mapping.process_new_keyframe(
-                self.K, m, kf_id, self.scale_factors, self.inv_sigma2,
-                self.cfg, ba_iters=ba_iters)
-        return run
+    def _mapping_pass(self, m, kf_id, fast: bool):
+        """The local-mapping pass on keyframe kf_id, on the full or the
+        abbreviated BA schedule."""
+        ba_iters = tuple(self.cfg.mapping.ba_abort_iters) if fast else None
+        return local_mapping.process_new_keyframe(
+            self.K, m, kf_id, self.scale_factors, self.inv_sigma2, self.cfg,
+            ba_iters=ba_iters)
+
+    def _merge_mapping(self, where: str):
+        """Fold a pending async pass into the live map."""
+        if self._async is None or self._async.pending is None:
+            return
+        with self._span("mapping_merge"):
+            self.map = self._async.merge(self.map)
+        self.mapping_stats[where + "_merges"] += 1
 
     def _insert_and_map(self, frame, Tcw, kp_pt, spawn, frame_id, n_inl):
-        """Insert a keyframe and run the local-mapping pass on it. Returns
-        the frame with the keyframe's point bindings adopted."""
+        """Insert a keyframe and run the local-mapping pass on it (inline,
+        or dispatched to the async mapper after folding in the pass still
+        in flight: the keyframe-rate barrier). Returns the frame with the
+        keyframe's point bindings adopted."""
+        self._merge_mapping("barrier")
         with self._span("insert_keyframe"):
             self.map, kf_id = self._insert_impl(self.map, frame, Tcw, kp_pt,
                                                 spawn, frame_id)
@@ -283,8 +431,15 @@ class SlamSystem:
         self.last_kf_id = kf_id
         self.frames_since_kf = 0
         self._kf_inliers = n_inl
-        with self._span("local_mapping"):
-            self.map = self._mapping_fn(kf_gap)(self.map, kf_id)
+        fast = self._fast_schedule(kf_gap)
+        self.mapping_stats["passes"] += 1
+        self.mapping_stats["abbreviated"] += int(fast)
+        if self._async is not None:
+            with self._span("mapping_dispatch"):
+                self._async.dispatch(self.map, kf_id, fast)
+        else:
+            with self._span("local_mapping"):
+                self.map = self._mapping_pass(self.map, kf_id, fast)
         return frame
 
     # ------------------------------------------------------------------
@@ -391,6 +546,9 @@ class SlamSystem:
                 self.map, frame = self.objects.update(self.map, frame)
         if ok:
             self.velocity = tr2.Tcw @ se3.inverse(last.Tcw)
+            if self._async is not None and self._async.ready():
+                # adopt a finished mapping pass as soon as it lands
+                self._merge_mapping("ready")
             n_close_trk, n_close_untrk, ref_matches = self._counts(
                 *self._kf_policy_impl(
                     self.map, frame.depth, frame.kp_pt, frame.valid, ref_id,
@@ -542,19 +700,15 @@ class SlamSystem:
             if done is not None:
                 done.synchronize()
             p = host.numpy()
-        Tcw_np = p[0:16].reshape(4, 4).copy()
-        ok = p[48] > 0.5
-        # the min-gap gate applies here, where frames_since_kf is current
-        need_soft = p[49] > 0.5
-        need_hard = p[57] > 0.5
-        need_kf = bool(need_hard) or (
-            bool(need_soft)
-            and self.frames_since_kf >= cfg.tracking.min_frames_between_kf)
-        n_inl = int(p[50])
+        Tcw_np = p[trk.PACKED_TCW].reshape(4, 4).copy()
+        ok = p[trk.PACKED_OK] > 0.5
+        need_kf = self._need_keyframe(pend, p)
+        n_inl = int(p[trk.PACKED_N_INLIERS])
         self._last_n_inliers = n_inl
         if self.objects is not None:
             # N_AllSemanticConstraintNum analogue, from the same readback
-            self.objects.semantic_constraints += int(p[56])
+            self.objects.semantic_constraints += int(
+                p[trk.PACKED_N_SEMANTIC])
 
         relocalized = False
         if not ok and n_inl < 10:
@@ -589,13 +743,23 @@ class SlamSystem:
                 # the packed Tcr belongs to the failed fused attempt
                 self._record_np(pend["ts"], Tcw_np, True)
             else:
-                self._record_precomputed(pend["ts"], Tcw_np,
-                                         p[32:48].reshape(4, 4).copy(), True,
-                                         ref_kf=pend["ref"])
+                self._record_precomputed(
+                    pend["ts"], Tcw_np, p[trk.PACKED_TCR].reshape(4, 4).copy(),
+                    True, ref_kf=pend["ref"])
         else:
             self._record_np(pend["ts"], Tcw_np, False)
         if latest:
             self.last_frame = frame
+
+    def _need_keyframe(self, pend, p) -> bool:
+        """The keyframe decision for the fused dispatch pend from its packed
+        readback p: the hard trigger, or the soft one once
+        min_frames_between_kf frames have passed (the min-gap gate applies
+        here, where frames_since_kf is current)."""
+        return bool(p[trk.PACKED_NEED_KF_HARD] > 0.5) or (
+            bool(p[trk.PACKED_NEED_KF] > 0.5)
+            and self.frames_since_kf
+            >= self.cfg.tracking.min_frames_between_kf)
 
     def _record_precomputed(self, timestamp, Tcw_np, Tcr_np, tracked,
                             ref_kf):
@@ -623,10 +787,12 @@ class SlamSystem:
     # lifecycle (System.h:64-130)
     # ------------------------------------------------------------------
     def flush_mapping(self):
-        """Fold the lagged readback into the state (the Shutdown-time
-        join analogue); without it the last frame's bookkeeping and a
-        pending keyframe insertion would be dropped."""
+        """Fold the lagged readback and any async mapping pass in flight
+        into the state (the Shutdown-time join analogue); without it the
+        last frame's bookkeeping, a pending keyframe insertion and the last
+        keyframe's mapping pass would be dropped."""
         self._resolve_fused_pending()
+        self._merge_mapping("flush")
 
     def final_trajectory(self):
         """Recompose each frame pose from its reference KF's (BA-corrected)
@@ -652,7 +818,10 @@ class SlamSystem:
 
     def reset(self):
         """Clear map, trajectory and tracker state (System::Reset ->
-        Tracking::Reset, Tracking.cc:1769-1815)."""
+        Tracking::Reset, Tracking.cc:1769-1815); a mapping pass in flight is
+        joined and dropped."""
+        if self._async is not None:
+            self._async.join()
         self.map = init_map(self.cfg.caps, self.cfg.objects.history_capacity,
                             device=self.device)
         if self.objects is not None:
@@ -672,8 +841,11 @@ class SlamSystem:
         return self.state
 
     def shutdown(self):
-        """Flush the pending bookkeeping (there are no threads to join)."""
+        """Flush the pending bookkeeping and the mapping pass in flight,
+        then stop the mapping thread."""
         self.flush_mapping()
+        if self._async is not None:
+            self._async.close()
 
     @property
     def n_keyframes(self):

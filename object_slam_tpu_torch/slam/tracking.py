@@ -26,6 +26,14 @@ from object_slam_tpu_torch.solvers.pose_opt import (PoseObs, pose_optimize,
                                                     pose_optimize_best)
 
 MAX_LOCAL_POINTS = 4096
+# offsets into track_frame_fused's packed readback vector
+PACKED_TCW = slice(0, 16)
+PACKED_TCR = slice(32, 48)
+PACKED_OK = 48
+PACKED_NEED_KF = 49
+PACKED_N_INLIERS = 50
+PACKED_N_SEMANTIC = 56
+PACKED_NEED_KF_HARD = 57
 
 
 class TrackResult(NamedTuple):
@@ -294,7 +302,7 @@ def track_frame_fused(K, m: MapState, frame: FrameData, last: FrameData,
     result (the reference's default "full" adoption).
 
     Returns (m, TrackResult, obj3d, packed [58] f32, vel, ok) with packed
-    laid out as in the reference:
+    laid out as in the reference (the PACKED_* offsets):
       0:16 Tcw, 16:32 velocity, 32:48 Tcr, 48 ok, 49 need_kf,
       50 n_inliers, 51 n_matches, 52 ref_kf, 53 n_close_tracked,
       54 n_close_untracked, 55 motion n_inliers, 56 n_semantic,

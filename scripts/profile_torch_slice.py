@@ -1,8 +1,10 @@
-"""Profile the PyTorch port's RGB-D main path on one CUDA card.
+"""Profile the PyTorch port's RGB-D or stereo path on one CUDA card.
 
     python scripts/profile_torch_slice.py [--frames 24] [--window 8]
                                           [--objects-off]
                                           [--blob {host,device}] [--strict]
+    python scripts/profile_torch_slice.py --sensor stereo [--async-mapping]
+                                          [--frames 24] [--window 8]
 
 Runs SlamSystem.track_rgbd (TUM VGA, strict readback) on frames rendered
 like chip_smoke.py, objects on with the frames' detections (or objects
@@ -13,7 +15,12 @@ pack_frame_blob into track_rgbd_blob, the numpy blob per frame (``host``,
 one pinned non-blocking copy each) or every blob staged on the card first
 (``device``); the trace window then ends with flush_mapping.
 ``--strict`` keeps the strict readback in blob mode, for a comparison on
-the same frames.
+the same frames. ``--sensor stereo`` runs SlamSystem.track_stereo with
+SlamConfig.kitti_stereo() (full width, objects on, the default pipelined
+path, rgb=None) over chip_smoke.py's rendered KITTI drive, with inline
+mapping or, with ``--async-mapping``, the mapping thread on its side
+stream; the busy share is the union of every stream's kernels, the mapping
+thread's included.
 
 Prints one JSON object: host ms per frame, the
 device's busy share of that wall time (union of kernel intervals), kernel
@@ -44,6 +51,11 @@ PORT_KERNELS = ("orb_describe_kernel", "patch_extract_kernel")
 # the object stages: the port's own profiler ranges of these names
 # (SlamSystem._span, and FrameBuilder around the Object2D build)
 STAGES = ("object2d", "object_assoc", "semopt", "object_update")
+# the system's profiler ranges whose host time is reported per frame
+SPANS = ("frame_build", "match_stereo", "object2d", "track_fused",
+         "resolve", "insert_keyframe", "local_mapping", "mapping_dispatch",
+         "mapping_merge", "local_mapping_async", "object_assoc", "semopt",
+         "object_update")
 # host calls that wait for the device or copy through it
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaMemcpyAsync", "cudaEventSynchronize")
@@ -97,6 +109,21 @@ def stage_ops(events, stage, w):
                         for k, v in top[:8]]}
 
 
+def span_host_ms(events, w):
+    """Host ms per frame and calls per frame of each range in SPANS (the
+    host-side events; the mapping thread's too where the profiler records
+    that thread)."""
+    out = {}
+    for name in SPANS:
+        ev = [e for e in events if e.name == name
+              and e.device_type == DeviceType.CPU]
+        if ev:
+            out[name] = (round(sum(e.time_range.end - e.time_range.start
+                                   for e in ev) / 1e3 / w, 4),
+                         round(len(ev) / w, 3))
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=24)
@@ -104,6 +131,8 @@ def main():
     ap.add_argument("--objects-off", action="store_true")
     ap.add_argument("--blob", choices=("host", "device"), default=None)
     ap.add_argument("--strict", action="store_true")
+    ap.add_argument("--sensor", choices=("rgbd", "stereo"), default="rgbd")
+    ap.add_argument("--async-mapping", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -116,13 +145,25 @@ def main():
 
     objects = not args.objects_off
     card = card_line()
-    cfg = tum_cfg()
-    poses, frames, sems = render(cfg, args.frames)
-    if args.blob and not args.strict:
-        cfg = SlamConfig.tum_rgbd()
-    sys_ = SlamSystem(cfg, enable_objects=objects, device="cuda")
+    if args.sensor == "stereo":
+        from object_slam_tpu_torch.datasets.synthetic import render_street
+        cfg = SlamConfig.kitti_stereo()
+        _, kframes, _ = render_street(cfg, args.frames)
+        sys_ = SlamSystem(cfg, enable_objects=objects,
+                          async_mapping=args.async_mapping, device="cuda")
 
-    if args.blob:
+        def step(i):
+            gl, gr, sa = kframes[i]
+            sys_.track_stereo(gl, gr, None, sa if objects else None,
+                              timestamp=i / 10.0)
+    else:
+        cfg = tum_cfg()
+        poses, frames, sems = render(cfg, args.frames)
+        if args.blob and not args.strict:
+            cfg = SlamConfig.tum_rgbd()
+        sys_ = SlamSystem(cfg, enable_objects=objects, device="cuda")
+
+    if args.sensor == "rgbd" and args.blob:
         blobs = [to_blob(sys_.builder, cfg, d, rgb,
                          sems[i] if objects else None)
                  for i, (_, d, rgb) in enumerate(frames)]
@@ -131,7 +172,7 @@ def main():
 
         def step(i):
             sys_.track_rgbd_blob(*blobs[i], timestamp=i / 30.0)
-    else:
+    elif args.sensor == "rgbd":
         def step(i):
             sys_.track_rgbd(*frames[i], sems[i] if objects else None,
                             timestamp=i / 30.0)
@@ -163,7 +204,8 @@ def main():
     port = [k for k in ka if any(n in k.key for n in PORT_KERNELS)]
     w = args.window
     out = {
-        "card": card, "objects": objects, "blob": args.blob,
+        "card": card, "sensor": args.sensor, "objects": objects,
+        "async_mapping": args.async_mapping, "blob": args.blob,
         "pipelined_readback": cfg.tracking.pipelined_readback,
         "frames_traced": w,
         "keyframes_in_window": int(torch.sum(
@@ -179,9 +221,14 @@ def main():
                           k.count // w) for k in port],
         "top_host_self": [(k.key, round(k.self_cpu_time_total / 1e3 / w, 4),
                            k.count // w) for k in top_cpu],
+        "span_host_ms_and_calls_per_frame": span_host_ms(events, w),
+        "mapping": dict(sys_.mapping_stats),
     }
     if objects:
         out["object_stages"] = {s: stage_ops(events, s, w) for s in STAGES}
+    if args.sensor == "stereo":
+        out["match_stereo"] = stage_ops(events, "match_stereo", w)
+    sys_.shutdown()
     print(json.dumps(out))
 
 

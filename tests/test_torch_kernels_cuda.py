@@ -115,6 +115,7 @@ def _bins(a):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shapes,n", [
     (pyr.level_shapes(480, 640, 8, 1.2), 128),
+    (pyr.level_shapes(376, 1241, 8, 1.2), 256),     # KITTI: 2048 keypoints
     (pyr.level_shapes(120, 160, 4, 1.2), 60),
     ([(32, 32)], 7),
     ([(400, 533)], 1)])

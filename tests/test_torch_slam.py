@@ -115,7 +115,6 @@ def test_no_relocalization_needed(run):
 
 @pytest.mark.parametrize("kwargs,tracking", [
     (dict(enable_objects=False, enable_loop=True), {}),
-    (dict(enable_objects=False, async_mapping=True), {}),
 ])
 def test_options_outside_the_slice_raise(kwargs, tracking):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -123,10 +122,10 @@ def test_options_outside_the_slice_raise(kwargs, tracking):
 
 
 def test_other_sensors_and_blob_entry_raise():
-    """Other sensors are not ported; the blob entry refuses a blob whose
+    """The mono sensor is not ported; the blob entry refuses a blob whose
     size is not the geometry's layout."""
-    with pytest.raises(NotImplementedError):
-        SlamSystem(small_cfg().replace(sensor="stereo"),
+    with pytest.raises(NotImplementedError, match="mono"):
+        SlamSystem(small_cfg().replace(sensor="mono"),
                    enable_objects=False, device="cpu")
     sys_ = SlamSystem(small_cfg(), enable_objects=False, device="cpu")
     with pytest.raises(ValueError, match="bytes"):

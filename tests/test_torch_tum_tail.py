@@ -319,19 +319,22 @@ def test_metrics_stream_equal_lines():
 def test_run_tum_torch_end_to_end(tmp_path):
     """The driver on a 2-frame TUM-format directory with masks, on the
     CPU: the three output files and the JSON summary."""
-    sys.path.insert(0, ROOT)
-    from chip_smoke import make_scene, write_tum_dir
     from object_slam_tpu_torch.config import SlamConfig
-    from object_slam_tpu_torch.datasets.synthetic import orbit_poses
+    from object_slam_tpu_torch.datasets import tum
+    from object_slam_tpu_torch.datasets.synthetic import (SyntheticScene,
+                                                          orbit_poses)
     cfg = SlamConfig.tum_rgbd()
-    scene = make_scene(cfg)
+    # bench.py's room: seed 3, three object boxes of size 0.9
+    scene = SyntheticScene.make(cfg, seed=3, n_objects=3)
+    for b in scene.boxes:
+        b["size"] = 0.9
     poses = orbit_poses(2, step=0.01)
     renders = []
     for T in poses:
         _, depth, rgb, sem = scene.render_rgbd(T)
         renders.append((depth, rgb, scene.sem_arrays(sem, 16)))
     seq, out = str(tmp_path / "seq"), str(tmp_path / "out")
-    write_tum_dir(seq, cfg, poses, renders)
+    tum.write_sequence(seq, poses, renders, cfg.camera.depth_map_factor)
     metrics = str(tmp_path / "m.jsonl")
     run = subprocess.run(
         [sys.executable, os.path.join(ROOT, "scripts", "run_tum_torch.py"),

@@ -19,12 +19,20 @@ inputs and outputs are recorded here once and committed:
   the start), pipelined, objects off, with every RANSAC index set drawn;
 * ``pipelined_tum_vga.npz`` and ``kidnap_tum_vga.npz``: bench.py's
   protocol on the 40 TUM-VGA frames (blobs, pipelined, objects on) and
-  the VGA kidnap (blobs, objects on), for ``chip_smoke.py``.
+  the VGA kidnap (blobs, objects on), for ``chip_smoke.py``;
+* ``stereo.npz``: track_stereo (u8 pairs, rgb=None, objects on, the
+  default fused pipelined path) on 12 frames of the small street canyon
+  (street.py's 416x128 geometry), inline and async mapping, and 8 frames
+  of the staged path (fused=False) async with ready() pinned to True;
+* ``kitti_stereo.npz``: the same at SlamConfig.kitti_stereo() on the first
+  24 frames of scripts/make_synth_kitti.py's drive, inline and async
+  mapping, for ``chip_smoke.py``.
 
 Run from the repository root (all parts, or the ones named):
 
     python tests/torch_fixtures/make_reference.py [slice1] [objects]
         [tum_vga] [pipelined] [kidnap] [pipelined_tum_vga] [kidnap_tum_vga]
+        [stereo] [kitti_stereo]
 
 slice1, objects and tum_vga use ``pipelined_readback=False``. The rendered
 inputs' checksums are stored so that the tests can prove they re-render
@@ -33,6 +41,7 @@ the same frames.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 
@@ -61,6 +70,8 @@ from object_slam_tpu.slam.system import SlamSystem  # noqa: E402
 from object_slam_tpu.solvers.ba import BAProblem, local_ba  # noqa: E402
 from object_slam_tpu.geometry.camera import Intrinsics  # noqa: E402
 from object_slam_tpu.semantic.object2d import Object2DSlab  # noqa: E402
+
+import street  # noqa: E402  (tests/torch_fixtures/street.py)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "slice1.npz")
@@ -677,9 +688,387 @@ def record_kidnap_tum_vga():
           f"{os.path.getsize(OUT_KIDNAP_VGA) / 1e3:.1f} kB", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# stereo: the small street canyon and KITTI at full width, sync and async
+# ---------------------------------------------------------------------------
+
+OUT_STEREO = os.path.join(HERE, "stereo.npz")
+OUT_KITTI = os.path.join(HERE, "kitti_stereo.npz")
+STEREO_FRAMES = 12
+KITTI_FRAMES = 24
+KITTI_NOISE_RUNS = 4
+
+
+def stereo_cfg():
+    """The small stereo geometry (street.py)."""
+    from object_slam_tpu import config
+    return street.stereo_cfg(config)
+
+
+def street_scene(cfg, n_frames, speed=0.8, seed=5, n_objects=6):
+    """scripts/make_synth_kitti.py's street canyon for an n_frames drive:
+    drive_trajectory(n_frames, speed), scale 8, 24 structures, n_objects
+    car boxes (label 2)."""
+    from object_slam_tpu.datasets.synthetic import drive_trajectory
+    poses = drive_trajectory(n_frames, speed=speed)
+    centers = np.stack([np.linalg.inv(T)[:3, 3] for T in poses])
+    scene = SyntheticScene.make(
+        cfg, seed=seed, n_objects=n_objects, plane_z=4.0, scale=8.0,
+        n_structures=24, corridor_len=float(n_frames * speed + 20.0),
+        path=centers)
+    for b in scene.boxes:
+        b["label"] = 2
+    return scene, poses
+
+
+_WORKER_SCENE = None
+
+
+def _init_render_worker(kind, n_frames):
+    global _WORKER_SCENE
+    cfg = SlamConfig.kitti_stereo() if kind == "kitti" else stereo_cfg()
+    _WORKER_SCENE = street_scene(cfg, n_frames)[0]
+
+
+def _render_u8(T):
+    """One stereo pair as the KITTI PNGs hold it (u8 gray) and the left
+    view's detection lists."""
+    gl, gr, _, _, sem = _WORKER_SCENE.render_stereo(T)
+    return (np.clip(gl, 0, 255).astype(np.uint8),
+            np.clip(gr, 0, 255).astype(np.uint8), sem)
+
+
+def render_street(kind, n_frames, first=0, last=None):
+    """Frames first..last-1 of the n_frames drive's stereo pairs, rendered
+    by a pool of spawned workers (each builds the scene from the same
+    seed)."""
+    import multiprocessing as mp
+    import time
+    cfg = SlamConfig.kitti_stereo() if kind == "kitti" else stereo_cfg()
+    scene, poses = street_scene(cfg, n_frames)
+    poses = poses[first:last]
+    t0 = time.perf_counter()
+    with mp.get_context("spawn").Pool(
+            min(os.cpu_count() or 1, 8), initializer=_init_render_worker,
+            initargs=(kind, n_frames)) as pool:
+        renders = pool.map(_render_u8, poses, chunksize=1)
+    print(f"rendered {len(poses)} {kind} stereo pairs in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    frames = [(gl, gr, scene.sem_arrays(sem, cfg.semantic.max_instances))
+              for gl, gr, sem in renders]
+    return cfg, scene, poses, frames
+
+
+class AsyncRecorder:
+    """Counts a JAX system's async mapping dispatches (and how many ran the
+    abbreviated schedule) and its merges."""
+
+    def __init__(self, sys_):
+        self.dispatches, self.fast, self.merges = 0, 0, 0
+        am = sys_._async
+        if am is None:
+            return
+        dispatch, merge = am.dispatch, am.merge
+
+        def disp(m, kf_id, fast=False):
+            self.dispatches += 1
+            self.fast += int(fast)
+            return dispatch(m, kf_id, fast=fast)
+
+        def mrg(m_now):
+            self.merges += int(am.pending is not None)
+            return merge(m_now)
+        am.dispatch, am.merge = disp, mrg
+
+
+def ulp_noise(sys_, seed):
+    """Scale the map's point coordinates by (1 + u), u uniform in +-6e-8
+    (at most one float32 ulp, drawn from ``seed``), at the input of every
+    local-mapping pass: the JAX run under another rounding of the same
+    arithmetic."""
+    rng = np.random.RandomState(seed)
+    for attr in ("_jit_mapping", "_jit_mapping_fast"):
+        fn = getattr(sys_, attr)
+
+        def noisy(m, kf_id, fn=fn):
+            u = rng.uniform(-6e-8, 6e-8, m.pt_xyz.shape)
+            xyz = (np.asarray(m.pt_xyz) * (1.0 + u)).astype(np.float32)
+            return fn(m._replace(pt_xyz=jnp.asarray(xyz)), kf_id)
+        setattr(sys_, attr, noisy)
+    if sys_._async is not None:
+        sys_._async.fn = sys_._jit_mapping
+        sys_._async.fn_fast = sys_._jit_mapping_fast
+
+
+def run_stereo(cfg, poses, frames, async_mapping, tag="", noise_seed=None):
+    """One JAX stereo run, objects on, the default fused pipelined path,
+    track_stereo(gray_l, gray_r, rgb=None, detections); flush at the end.
+    With noise_seed, every mapping pass's input points carry one-ulp noise
+    (ulp_noise). Returns what the port's runs are held to."""
+    import time
+    sys_ = SlamSystem(cfg, enable_objects=True, async_mapping=async_mapping)
+    if noise_seed is not None:
+        ulp_noise(sys_, noise_seed)
+    rec = Recorder(sys_)
+    arec = AsyncRecorder(sys_)
+    t0 = time.perf_counter()
+    for i, (gl, gr, sa) in enumerate(frames):
+        sys_.track_stereo(jnp.asarray(gl), jnp.asarray(gr), None, sa,
+                          timestamp=i / 10.0)
+        print(f"{tag} frame {i}: state={sys_.state} kf={sys_.last_kf_id} "
+              f"staged={rec.staged[-1:]} t={time.perf_counter() - t0:.1f}s",
+              flush=True)
+    sys_.flush_mapping()
+    seconds = time.perf_counter() - t0
+    rec.close()
+    traj = sys_.final_trajectory()
+    m = sys_.map
+    kf_valid = np.asarray(m.kf_valid)
+    labels = np.asarray(m.obj_label)[np.asarray(m.obj_valid)]
+    lab, cnt = np.unique(labels, return_counts=True)
+    out = {
+        "tracked": np.asarray([r.tracked for r in sys_.trajectory]),
+        "rec_tcw": np.stack([r.Tcw for r in sys_.trajectory]).astype(
+            np.float32),
+        "final_tcw": np.stack([t[1] for t in traj]).astype(np.float32),
+        "kf_frames": np.asarray(m.kf_frame_id)[kf_valid].astype(np.int32),
+        "n_points": np.int32(int(np.sum(np.asarray(m.pt_valid)))),
+        "staged_frames": np.asarray(rec.staged, np.int32),
+        "census_labels": lab.astype(np.int32),
+        "census_counts": cnt.astype(np.int32),
+        "semantic_constraints": np.int64(sys_.objects.semantic_constraints),
+        "dispatches": np.int32(arec.dispatches),
+        "fast_dispatches": np.int32(arec.fast),
+        "merges": np.int32(arec.merges),
+        "seconds": np.float64(seconds),
+    }
+    gt = np.stack([np.linalg.inv(T)[:3, 3] for T in poses])
+    est = np.stack([np.linalg.inv(T)[:3, 3] for T in out["final_tcw"]])
+    ok = out["tracked"]
+    out["ate"] = np.float64(ate_rmse(est[ok], gt[ok]))
+    print(f"{tag}: {int(ok.sum())}/{len(ok)} tracked, KFs at "
+          f"{out['kf_frames']}, staged {rec.staged}, census "
+          f"{dict(zip(lab.tolist(), cnt.tolist()))}, constraints "
+          f"{out['semantic_constraints']}, dispatches {arec.dispatches} "
+          f"({arec.fast} abbreviated), merges {arec.merges}, ATE "
+          f"{out['ate']:.6f} m, {seconds:.1f} s", flush=True)
+    return out
+
+
+STAGED_STEREO_FRAMES = 8
+
+
+def run_staged_ready(cfg, poses, frames):
+    """The staged path (fused=False) with async mapping and ready() pinned
+    to True whenever a pass is pending, so every staged frame that tracks
+    merges the pass in flight (the reference's ready() depends on timing)."""
+    from object_slam_tpu.slam import system as jsys
+    ready = jsys._AsyncMapping.ready
+    jsys._AsyncMapping.ready = lambda self: self.pending is not None
+    try:
+        return run_stereo(cfg.replace(tracking=dataclasses.replace(
+            cfg.tracking, fused=False)), poses, frames, True,
+            tag="stereo staged")
+    finally:
+        jsys._AsyncMapping.ready = ready
+
+
+def record_street(kind, n_frames, path):
+    """The drive's sync and async runs, with the inputs' checksums (and,
+    for the small drive, the staged run with ready() pinned)."""
+    cfg, _, poses, frames = render_street(kind, n_frames)
+    out = {"gray_sum": np.asarray([float(np.sum(gl, dtype=np.float64))
+                                   for gl, _, _ in frames]),
+           "gray_r_sum": np.asarray([float(np.sum(gr, dtype=np.float64))
+                                     for _, gr, _ in frames]),
+           "n_detections": np.asarray([int(np.sum(sa[4]))
+                                       for _, _, sa in frames], np.int32)}
+    for mode, async_mapping in (("sync", False), ("async", True)):
+        put(out, mode, run_stereo(cfg, poses, frames, async_mapping,
+                                  tag=f"{kind} {mode}"))
+    if kind == "stereo":
+        n = STAGED_STEREO_FRAMES
+        put(out, "staged", run_staged_ready(cfg, poses[:n], frames[:n]))
+    else:
+        # the reference against itself under one-ulp noise in the mapping
+        # passes' inputs: how far its keyframes, records and ATE move
+        for mode, async_mapping in (("sync", False), ("async", True)):
+            for k in range(KITTI_NOISE_RUNS):
+                res = run_stereo(cfg, poses, frames, async_mapping,
+                                 tag=f"{kind} {mode} ulp noise {k}",
+                                 noise_seed=k)
+                put(out, f"noise.{mode}.{k}",
+                    {f: res[f] for f in ("tracked", "rec_tcw", "final_tcw",
+                                         "kf_frames", "ate")})
+    np.savez_compressed(path, **out)
+    print(f"wrote {path}: {os.path.getsize(path) / 1e3:.1f} kB", flush=True)
+
+
+OUT_KITTI_PASS = os.path.join(HERE, "kitti_pass.npz")
+KITTI_PASS = 2                 # the third pass of the sync drive (keyframe 3)
+KITTI_PASS_TRIALS = 4
+
+
+def compact_map(m, base):
+    """A MapState's numpy fields without their trailing rows that equal
+    base's (the map as init_map leaves it): {field: rows}.
+    interop.overlay_rows restores the full arrays from the port's
+    init_map."""
+    out = {}
+    for f, v in m.items():
+        b = base[f]
+        if v.ndim == 0 or v.shape[0] != b.shape[0]:
+            out[f] = v
+            continue
+        same = np.all((v == b).reshape(v.shape[0], -1), axis=1)
+        used = np.flatnonzero(~same)
+        out[f] = v[:int(used[-1]) + 1 if used.size else 0]
+    return out
+
+
+def record_kitti_pass():
+    """One local-mapping pass of the KITTI sync drive (the pass on keyframe
+    3), stage by stage in the JAX package: the pass's input map as the JAX
+    run built it, then each stage's output on the previous stage's output
+    (only the rows that stage changed), the abbreviated BA schedule as the
+    run used it. Then the JAX local BA again KITTI_PASS_TRIALS times on
+    its input with the points scaled by (1 + u), u uniform in +-6e-8 (one
+    float32 ulp): how far the reference's own BA moves the keyframes."""
+    from object_slam_tpu.slam import local_mapping as jlm
+    from object_slam_tpu.slam import map_ops as jmo
+    cfg, _, _, frames = render_street("kitti", KITTI_FRAMES, 0, 5)
+    sys_ = SlamSystem(cfg, enable_objects=True, async_mapping=False)
+    base = {f: np.asarray(getattr(sys_.map, f)) for f in MapState._fields}
+    captured = []
+    for attr, fast in (("_jit_mapping", False), ("_jit_mapping_fast", True)):
+        fn = getattr(sys_, attr)
+
+        def wrap(m, kf, fn=fn, fast=fast):
+            captured.append(({f: np.asarray(getattr(m, f))
+                              for f in MapState._fields}, int(kf), fast))
+            return fn(m, kf)
+        setattr(sys_, attr, wrap)
+    for i, (gl, gr, sa) in enumerate(frames):
+        sys_.track_stereo(jnp.asarray(gl), jnp.asarray(gr), None, sa,
+                          timestamp=i / 10.0)
+        if len(captured) > KITTI_PASS:
+            break
+    m_in, kf, fast = captured[KITTI_PASS]
+    K, sf, is2 = sys_.K, sys_.scale_factors, sys_.inv_sigma2
+    J = lambda d: MapState(**{f: jnp.asarray(v) for f, v in d.items()})  # noqa: E731
+    npy = lambda jm: {f: np.asarray(getattr(jm, f)) for f in MapState._fields}  # noqa: E731
+    W = jlm.covisibility(J(m_in))[kf]
+    kfj = jnp.int32(kf)
+    it1, it2 = cfg.mapping.ba_abort_iters if fast else (5, 10)
+
+    def stats(m):
+        Kcap = m.kf_kp_pt.shape[0]
+        Wn = jnp.where(m.kf_valid & (jnp.arange(Kcap) != kf), W, -1)
+        nbrs = jax.lax.top_k(Wn, min(15, Kcap))[1]
+        return jlm.recompute_point_stats_windowed(
+            m, jnp.concatenate([kfj[None], nbrs]), cap=cfg.caps.local_pt_cap)
+
+    def ba(m):
+        return jlm.run_local_ba(
+            m=m, K=K, kf_id=kfj, window=cfg.caps.local_window_kf, n_fixed=8,
+            inv_sigma2_lvl=is2, iters1=it1, iters2=it2,
+            pt_cap=cfg.caps.local_pt_cap, W_row=W,
+            obs_cap=cfg.caps.local_obs_per_kf)
+    assert cfg.mapping.reelect_descriptors
+    stages = [
+        ("cull_points", lambda m: jmo.cull_points(
+            m, kfj, recency_scope=cfg.mapping.cull_recency_scope)),
+        ("triangulate", lambda m: jmo.triangulate_new_points(
+            m, kfj, n_neighbors=5, K=K, inv_sigma2_lvl=is2,
+            scale_factors=sf, W_row=W)),
+        ("fuse", lambda m: jmo.fuse_into_neighbors(
+            m, kfj, n_neighbors=5, K=K, scale_factors=sf,
+            inv_sigma2_lvl=is2, W_row=W)),
+        ("point_stats", stats),
+        ("local_ba", ba),
+        ("cull_keyframes", lambda m: jmo.cull_keyframes(
+            m, kfj, scale_condition=cfg.mapping.kf_cull_scale_condition,
+            n_levels=cfg.orb.n_levels, W_row=W)),
+    ]
+    out = {"kf": np.int32(kf), "fast": np.bool_(fast),
+           "stages": np.asarray([n for n, _ in stages])}
+    for f, v in compact_map(m_in, base).items():
+        out[f"in.{f}"] = v
+    prev = m_in
+    for name, fn in stages:
+        cur = npy(fn(J(prev)))
+        changed = {f: v for f, v in cur.items()
+                   if not np.array_equal(v, prev[f])}
+        for f, v in changed.items():
+            # the rows the stage changed (interop.stage_maps reads them)
+            if v.ndim == 0:
+                out[f"{name}.{f}"] = v
+                continue
+            idx = np.flatnonzero(np.any(
+                (v != prev[f]).reshape(v.shape[0], -1), axis=1))
+            out[f"{name}.{f}@idx"] = idx.astype(np.int32)
+            out[f"{name}.{f}@rows"] = v[idx]
+        print(f"kitti pass {KITTI_PASS} (keyframe {kf}, abbreviated {fast})"
+              f" {name}: changed {sorted(changed)}", flush=True)
+        if name == "point_stats":
+            ba_in = cur
+        if name == "local_ba":
+            ba_out = cur
+        prev = cur
+    kv = ba_out["kf_valid"]
+    rng = np.random.RandomState(0)
+    moves = []
+    for _ in range(KITTI_PASS_TRIALS):
+        d = dict(ba_in)
+        d["pt_xyz"] = (ba_in["pt_xyz"] * (1.0 + rng.uniform(
+            -6e-8, 6e-8, ba_in["pt_xyz"].shape))).astype(np.float32)
+        t = npy(ba(J(d)))
+        moves.append(float(np.max(np.linalg.norm(
+            t["kf_pose"][kv][:, :3, 3] - ba_out["kf_pose"][kv][:, :3, 3],
+            axis=1))))
+    out["ba_ulp_kf_move"] = np.asarray(moves)
+    out["ba_kf_move"] = np.float64(np.max(np.linalg.norm(
+        ba_out["kf_pose"][kv][:, :3, 3] - ba_in["kf_pose"][kv][:, :3, 3],
+        axis=1)))
+    print(f"kitti pass: the JAX BA moves the keyframes by up to "
+          f"{out['ba_kf_move'] * 1e3:.3f} mm; under one-ulp input noise it "
+          f"lands {[round(x * 1e3, 3) for x in moves]} mm from itself",
+          flush=True)
+    np.savez_compressed(OUT_KITTI_PASS, **out)
+    print(f"wrote {OUT_KITTI_PASS}: "
+          f"{os.path.getsize(OUT_KITTI_PASS) / 1e3:.1f} kB", flush=True)
+
+
+OUT_KITTI_OBJECTS = os.path.join(HERE, "kitti_objects.npz")
+KITTI_OBJ_DRIVE = 40           # the drive whose scene is built
+KITTI_OBJ_FIRST = 8            # its frames 8..39: cars pass within ThDepth
+
+
+def record_kitti_objects():
+    """The KITTI drive on which objects form: frames 8..39 of the 40-frame
+    street canyon (two to four cars detected per frame from frame 8 to 32,
+    passing within ThDepth x baseline), SlamConfig.kitti_stereo(), objects
+    on, async mapping (the KITTI driver's default)."""
+    cfg, _, poses, frames = render_street("kitti", KITTI_OBJ_DRIVE,
+                                          KITTI_OBJ_FIRST)
+    out = {"gray_sum": np.asarray([float(np.sum(gl, dtype=np.float64))
+                                   for gl, _, _ in frames]),
+           "n_detections": np.asarray([int(np.sum(sa[4]))
+                                       for _, _, sa in frames], np.int32)}
+    res = run_stereo(cfg, poses, frames, True, tag="kitti objects async")
+    if not len(res["census_labels"]) or not res["semantic_constraints"]:
+        raise SystemExit("kitti_objects: no object formed")
+    put(out, "async", res)
+    np.savez_compressed(OUT_KITTI_OBJECTS, **out)
+    print(f"wrote {OUT_KITTI_OBJECTS}: "
+          f"{os.path.getsize(OUT_KITTI_OBJECTS) / 1e3:.1f} kB", flush=True)
+
+
 def main():
     parts = sys.argv[1:] or ["slice1", "objects", "tum_vga", "pipelined",
-                             "kidnap", "pipelined_tum_vga", "kidnap_tum_vga"]
+                             "kidnap", "pipelined_tum_vga", "kidnap_tum_vga",
+                             "stereo", "kitti_stereo", "kitti_pass",
+                             "kitti_objects"]
     if "slice1" in parts:
         out = {}
         record_local_ba(out)
@@ -708,6 +1097,14 @@ def main():
         record_pipelined_tum_vga()
     if "kidnap_tum_vga" in parts:
         record_kidnap_tum_vga()
+    if "stereo" in parts:
+        record_street("stereo", STEREO_FRAMES, OUT_STEREO)
+    if "kitti_stereo" in parts:
+        record_street("kitti", KITTI_FRAMES, OUT_KITTI)
+    if "kitti_pass" in parts:
+        record_kitti_pass()
+    if "kitti_objects" in parts:
+        record_kitti_objects()
 
 
 if __name__ == "__main__":
