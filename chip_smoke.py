@@ -46,6 +46,26 @@ Phases, each fatal on failure:
   7. scripts/run_tum_torch.py on a 12-frame TUM-format directory with
      masks that this script writes under build/ (the port's zlib PNG
      writer): the three output files and the JSON summary;
+  7b. loop closing at full width (SlamSystem(SlamConfig.tum_rgbd(),
+     enable_objects=True, enable_loop=True), the 10^4-word vocabulary):
+     the JAX circuit's accepted closure stage by stage from the JAX state
+     just before it (loop_pass_tum_vga.npz, the Sim3 draws replayed; each
+     check's limit at LOOP_PASS_LIMITS and beside it), then with three
+     planted faults (the pose graph skipped, the GBA skipped, T12
+     inverted), each of which must fail a check; the circuit
+     (loop_trajectory, LOOP_FRAMES frames over LOOP_TURNS turns, blobs as
+     bench.py packs them, pipelined, objects on) replayed against
+     loop_circuit_tum_vga.npz (flags, keyframes, census and events equal;
+     records, records after the closure and ATE within LOOP_NOISE_MARGIN
+     times the JAX run's one-ulp noise spread), with its own decisions (an
+     accepted closure within 2 keyframes of one the JAX package accepts on
+     this circuit, ATE below the JAX run's with the loop off), and with
+     the loop off on its first 40 frames (the ms/frame baseline); the
+     replayed circuit once more with the closure's correction dropped,
+     which must fail a band; the kidnap of 6
+     with the loop on, the LOST frames relocalizing through the BoW
+     candidates (kidnap_loop_tum_vga.npz, the PnP draws replayed); then
+     run_tum_torch.py --loop on the 12 frames of 7;
   8. KITTI stereo at full width (SlamConfig.kitti_stereo(): 1241x376,
      2000 features, n_kp 2048, 65536 points, 1024 keyframes): first one
      local-mapping pass of the JAX sync drive stage by stage on the card
@@ -231,26 +251,14 @@ def tum_cfg():
         tracking=TrackingConfig(pipelined_readback=False))
 
 
-def make_scene(cfg):
-    """bench.py's room: seed 3, three object boxes of size 0.9."""
-    from object_slam_tpu_torch.datasets.synthetic import SyntheticScene
-    scene = SyntheticScene.make(cfg, seed=3, n_objects=3)
-    for b in scene.boxes:
-        b["size"] = 0.9
-    return scene
-
-
 def render(cfg, n_frames):
-    from object_slam_tpu_torch.datasets.synthetic import orbit_poses
-    scene = make_scene(cfg)
+    """orbit_poses(n_frames, step=0.01) in bench.py's room, rendered by a
+    pool of processes: (poses, [(gray, depth, rgb) float32], [sem])."""
+    from object_slam_tpu_torch.datasets.synthetic import (orbit_poses,
+                                                          render_room)
     poses = orbit_poses(n_frames, step=0.01)
-    frames, sems = [], []
-    for T in poses:
-        gray, depth, rgb, sem = scene.render_rgbd(T)
-        frames.append((gray.astype(np.float32), depth.astype(np.float32),
-                       rgb.astype(np.float32)))
-        sems.append(scene.sem_arrays(sem, cfg.semantic.max_instances))
-    return poses, frames, sems
+    out, _ = render_room(cfg, poses)
+    return poses, [f[:3] for f in out], [f[3] for f in out]
 
 
 def main_path_inputs(cfg, gray):
@@ -752,7 +760,32 @@ def phase_bench(cfg, poses, frames, sems, card, strict_ms):
     return out
 
 
-def phase_kidnap(cfg, scene, card):
+_KIDNAP_FRAMES = {}
+
+
+def kidnap_frames(cfg, ref):
+    """The kidnap's frames (float32 gray, depth, rgb, detections; dark
+    frames zero) in bench.py's room, each view rendered once by a pool of
+    processes and kept for the next phase on the same poses."""
+    from object_slam_tpu_torch.datasets.synthetic import render_room
+    poses, blank = ref["poses"], ref["blank"]
+    key = (poses.tobytes(), blank.tobytes())
+    if key in _KIDNAP_FRAMES:
+        return _KIDNAP_FRAMES[key]
+    H, W = cfg.camera.height, cfg.camera.width
+    views = {T.tobytes(): T for T, dark in zip(poses, blank) if not dark}
+    rendered, secs = render_room(cfg, list(views.values()))
+    cache = dict(zip(views, rendered))
+    dark = (np.zeros((H, W), np.float32), np.zeros((H, W), np.float32),
+            np.zeros((H, W, 3), np.float32), None)
+    frames = [dark if d else cache[T.tobytes()] for T, d in zip(poses, blank)]
+    print(f"kidnap: rendered {len(cache)} views for {len(frames)} frames in "
+          f"{secs:.1f} s with a pool of processes", flush=True)
+    _KIDNAP_FRAMES[key] = frames
+    return frames
+
+
+def phase_kidnap(cfg, card):
     """The kidnap sequence of KIDNAP_REF (a pan, dark frames, a jump back
     to the start) as blobs, objects on, pipelined readback. Run 1 replays
     the JAX run's RANSAC index sets and must give the same LOST, staged and
@@ -764,25 +797,8 @@ def phase_kidnap(cfg, scene, card):
     from object_slam_tpu_torch.slam.system import SlamSystem
 
     ref = np.load(KIDNAP_REF)
-    poses, blank = ref["poses"], ref["blank"]
-    H, W = cfg.camera.height, cfg.camera.width
-    t0 = time.perf_counter()
-    cache, frames = {}, []
-    for T, dark in zip(poses, blank):
-        if dark:
-            frames.append((np.zeros((H, W), np.float32),
-                           np.zeros((H, W), np.float32),
-                           np.zeros((H, W, 3), np.float32), None))
-            continue
-        key = T.tobytes()
-        if key not in cache:
-            g, d, rgb, sem = scene.render_rgbd(T)
-            cache[key] = (g.astype(np.float32), d.astype(np.float32),
-                          rgb.astype(np.float32),
-                          scene.sem_arrays(sem, cfg.semantic.max_instances))
-        frames.append(cache[key])
-    print(f"kidnap: rendered {len(cache)} views for {len(frames)} frames in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    poses = ref["poses"]
+    frames = kidnap_frames(cfg, ref)
     gray_sum = [float(np.sum(f[0], dtype=np.float64)) for f in frames]
     if not np.allclose(gray_sum, ref["gray_sum"], rtol=1e-9, atol=0):
         fail("kidnap: the rendered frames differ from the reference run's")
@@ -932,11 +948,14 @@ def reloc_cost(sys_, blob_iv, card, reps: int = 10):
           f"eigh / svd: {json.dumps(inside)}", flush=True)
 
 
-def phase_tum(cfg, poses, frames, sems, card, n_frames: int = TUM_FRAMES):
+def phase_tum(cfg, poses, frames, sems, card, n_frames: int = TUM_FRAMES,
+              loop: bool = False):
     """scripts/run_tum_torch.py, in this process, on a TUM-format
     directory of the first n_frames frames with their masks (written under
     build/), the counts set to 0 just before and read just after. Checks
-    the three output files and the JSON summary."""
+    the three output files and the JSON summary; with loop,
+    run_tum_torch.py runs with --loop: every keyframe gets a BoW row and
+    no loop closes on these 12 frames of an orbit."""
     import contextlib
     import io
     import runpy
@@ -955,7 +974,8 @@ def phase_tum(cfg, poses, frames, sems, card, n_frames: int = TUM_FRAMES):
     write_s = time.perf_counter() - t0
     argv = sys.argv
     sys.argv = ["run_tum_torch.py", "--seq", seq, "--semantic-dir",
-                os.path.join(seq, "semantic"), "--out", res_dir]
+                os.path.join(seq, "semantic"), "--out", res_dir] + (
+                    ["--loop"] if loop else [])
     buf = io.StringIO()
     zero_counts()
     t0 = time.perf_counter()
@@ -966,13 +986,14 @@ def phase_tum(cfg, poses, frames, sems, card, n_frames: int = TUM_FRAMES):
     finally:
         sys.argv = argv
     run_s = time.perf_counter() - t0
-    launches = read_counts("TUM driver", n_frames)
+    name = "TUM driver --loop" if loop else "TUM driver"
+    launches = read_counts(name, n_frames)
     lines = buf.getvalue().strip().splitlines()
     try:
         res = json.loads(lines[-1])
     except (IndexError, ValueError):
         fail(f"TUM driver: no JSON summary in {lines[-3:]}")
-    print(f"TUM driver [{card}]: wrote {n_frames} frames in {write_s:.1f} s, "
+    print(f"{name} [{card}]: wrote {n_frames} frames in {write_s:.1f} s, "
           f"ran in {run_s:.1f} s; summary {json.dumps(res)}; launches "
           f"{launches}", flush=True)
     cam = open(os.path.join(res_dir, "CameraTrajectory.txt")).read()
@@ -988,6 +1009,10 @@ def phase_tum(cfg, poses, frames, sems, card, n_frames: int = TUM_FRAMES):
         fail(f"TUM driver: summary {res}")
     if not res.get("ate_rmse", 1.0) < 0.05:
         fail(f"TUM driver: ATE {res.get('ate_rmse')}")
+    if loop and not (res.get("bow_rows") == res["keyframes"]
+                     and res.get("loops_closed") == 0
+                     and res.get("loop_events") == []):
+        fail(f"TUM driver --loop: summary {res}")
     return launches
 
 
@@ -1409,6 +1434,714 @@ def phase_kitti_driver(poses, frames, card,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# loop closing at TUM-VGA width: one closure stage by stage, the circuit
+# replayed and with its own decisions, the kidnap through the BoW
+# relocalization
+# ---------------------------------------------------------------------------
+
+LOOP_PASS_REF = os.path.join(FIXTURES, "loop_pass_tum_vga.npz")
+LOOP_CIRCUIT_REF = os.path.join(FIXTURES, "loop_circuit_tum_vga.npz")
+KIDNAP_LOOP_REF = os.path.join(FIXTURES, "kidnap_loop_tum_vga.npz")
+LOOP_STAGES = ("bow", "propagate", "fuse", "pose_graph", "gba")
+# the circuit (make_reference.py loop_circuit_tum_vga): loop_trajectory
+# over LOOP_FRAMES frames, LOOP_TURNS turns, in bench.py's room
+LOOP_FRAMES = 120
+LOOP_TURNS = 1.15
+# the loop-off baseline's depth: its ms/frame is compared with the own
+# decisions run's over the same frames WARMUP..LOOP_OFF_FRAMES-1 (a depth
+# cut for the script's time limit; PERF.md section 4)
+LOOP_OFF_FRAMES = 40
+# records and ATE of the replayed circuit: LOOP_NOISE_MARGIN times the
+# farthest of the JAX run's own one-ulp noise runs that kept its flags,
+# keyframes and closure (the closure's input carries the noise too)
+LOOP_NOISE_MARGIN = 2.0
+# the closure stage by stage, each stage on the JAX stage's input (float
+# limits in metres; see PERF.md section 6 for the readings): the
+# propagation is a few f32 products per pose and point; the fusion's
+# bindings may differ where a projection sits on a window or Hamming
+# threshold; the pose graph is 20 dense GN solves; the GBA keyframes are
+# held to LOOP_NOISE_MARGIN times the JAX GBA's own one-ulp spread
+LOOP_PASS_LIMITS = {
+    "propagate": {"kf_pose": 1e-5, "pt_xyz": 1e-5},
+    "fuse_bindings": 8,
+    "pose_graph": {"kf_pose": 1e-4, "pt_xyz": 1e-4},
+}
+# the Sim3 after Gauss-Newton (translation entries in metres; rotation
+# entries), and the guided count
+SIM3_T12_LIMIT = 1e-4
+GUIDED_BAND = 2
+# the closure's quality numbers (mean Huber cost per observation):
+# relative; the gate decisions must be equal
+LOOP_Q_RTOL = 1e-3
+
+
+def loop_events(evs):
+    return [(e["q"], e["l"], bool(e["accepted"]), bool(e.get("pre_gated",
+                                                             False)))
+            for e in evs]
+
+
+def phase_loop_pass(card, fault=None):
+    """The circuit's accepted closure stage by stage (loop_pass_tum_vga.npz:
+    the JAX closer's input map and host state, every stage's output). The
+    port's closer runs on_keyframe on that input with the JAX Sim3 draws
+    replayed and is held, stage after stage of its own run, to: the BoW
+    row's words exact and values within 1e-6; the candidates and the
+    consistency groups exact; every attempt's match pairs exact; the
+    RANSAC winner's inliers exact; T12 / s12 after Gauss-Newton within
+    SIM3_T12_LIMIT; the guided count within GUIDED_BAND; the gate numbers,
+    q before and after within LOOP_Q_RTOL, the events' decisions equal.
+    Then each map stage runs again on the JAX stage's input and is held to
+    its output within LOOP_PASS_LIMITS, the GBA's keyframes within
+    LOOP_NOISE_MARGIN times the JAX GBA's own one-ulp spread. fault plants
+    one of "no_pose_graph", "no_gba", "inverted_t12"; returns the failed
+    checks (the caller fails on any, or on none for a fault)."""
+    import torch
+    from object_slam_tpu_torch import interop
+    from object_slam_tpu_torch.config import SlamConfig
+    from object_slam_tpu_torch.geometry import sim3
+    from object_slam_tpu_torch.geometry.camera import Intrinsics
+    from object_slam_tpu_torch.loop.loop_closing import LoopCloser
+    from object_slam_tpu_torch.slam.map_state import init_map
+    from object_slam_tpu_torch.solvers import sim3_solver
+
+    fx = np.load(LOOP_PASS_REF)
+    cfg = SlamConfig.tum_rgbd()
+    lc = LoopCloser(cfg, Intrinsics.from_config(cfg.camera), device="cuda")
+    base = interop.map_state_to_numpy(init_map(
+        cfg.caps, cfg.objects.history_capacity,
+        n_bow_words=lc.vocab.n_words, device="cpu"))
+    states = interop.stage_maps(fx, base, LOOP_STAGES)
+    q = int(fx["q"])
+    interop.loop_state_from_numpy(
+        lc, {k[len("state_in."):]: fx[k] for k in fx.files
+             if k.startswith("state_in.")})
+    bad, readings = [], {}
+
+    def T(d):
+        return interop.map_state_from_numpy(d, device="cuda")
+
+    def npy(m):
+        return interop.map_state_to_numpy(m)
+
+    def sync():
+        torch.cuda.synchronize()
+
+    sets = [torch.from_numpy(s).cuda() for s in fx["sim3_sets"]]
+    lc._minimal_sets = lambda valid, n_trials=256: sets.pop(0)
+    rec = {"match": [], "ransac": [], "gn": [], "guided": []}
+    match_pairs, guided = lc.match_pairs, lc.guided_matches
+    ransac, gn = sim3_solver.sim3_ransac_sets, sim3_solver.sim3_gn_refine
+
+    def match_fn(m, q_, l_):
+        out = match_pairs(m, q_, l_)
+        rec["match"].append((l_, [x.cpu().numpy() for x in out]))
+        return out
+
+    def ransac_fn(*a, **kw):
+        r = ransac(*a, **kw)
+        rec["ransac"].append(r)
+        return r
+
+    def gn_fn(*a, **kw):
+        r = gn(*a, **kw)
+        if fault == "inverted_t12":
+            Ti, si = sim3.inverse(r[0], r[1])
+            r = (Ti, si) + tuple(r[2:])
+        rec["gn"].append(r)
+        return r
+
+    def guided_fn(*a):
+        n = guided(*a)
+        rec["guided"].append(n)
+        return n
+    lc.match_pairs, lc.guided_matches = match_fn, guided_fn
+    sim3_solver.sim3_ransac_sets, sim3_solver.sim3_gn_refine = \
+        ransac_fn, gn_fn
+    pose_graph, gba = lc.pose_graph, lc.gba
+    if fault == "no_pose_graph":
+        lc.pose_graph = lambda m, *a: m
+    elif fault == "no_gba":
+        lc.gba = lambda m: m
+    elif fault not in (None, "inverted_t12"):
+        raise ValueError(fault)
+    sync()
+    t0 = time.perf_counter()
+    try:
+        m_out, closed = lc.on_keyframe(T(states["in"]), q)
+        sync()
+    finally:
+        sim3_solver.sim3_ransac_sets, sim3_solver.sim3_gn_refine = ransac, gn
+    wall_ms = (time.perf_counter() - t0) * 1e3
+
+    # the BoW row and the detection
+    m_in = T(states["in"])
+    word, bow = lc.vocab.transform(m_in.kf_kp_desc[q], m_in.kf_kp_valid[q])
+    n_word = int(np.sum(word.cpu().numpy() != fx["bow_word"]))
+    e_bow = float(np.max(np.abs(bow.cpu().numpy() - fx["bow_row"])))
+    readings["bow"] = {"words_differing": n_word, "max_abs_err": e_bow}
+    if n_word or e_bow > 1e-6:
+        bad.append(f"bow: {n_word} words differ, values {e_bow}")
+    cand, _ = lc.detect(T(states["bow"]), q)
+    if not np.array_equal(cand.cpu().numpy(), fx["cand"]):
+        bad.append("detect: candidates differ")
+    st = interop.loop_state_to_numpy(lc)
+    for k in ("group_members", "group_sizes", "group_counts",
+              "last_loop_kf", "cooldown"):
+        if not np.array_equal(st[k], fx["state_out." + k]):
+            bad.append(f"groups: {k} {st[k]} against "
+                       f"{fx['state_out.' + k]}")
+    # every Sim3 attempt
+    want_l = fx["attempt_l"].tolist()
+    if [l for l, _ in rec["match"]] != want_l:
+        bad.append(f"attempts on {[l for l, _ in rec['match']]}, "
+                   f"reference {want_l}")
+    for i, (l, (pc_q, pc_l, mok, midx)) in enumerate(rec["match"][
+            :len(want_l)]):
+        if not (np.array_equal(mok, fx[f"match{i}.ok"])
+                and np.array_equal(np.where(mok, midx, -1),
+                                   np.where(fx[f"match{i}.ok"],
+                                            fx[f"match{i}.idx"], -1))):
+            bad.append(f"attempt {i} (l={l}): match pairs differ "
+                       f"({int(mok.sum())} against "
+                       f"{int(fx[f'match{i}.ok'].sum())})")
+    for i, r in enumerate(rec["ransac"]):
+        if f"ransac{i}.inliers" not in fx.files:
+            bad.append(f"RANSAC {i}: the reference has no such attempt")
+            continue
+        if not np.array_equal(r.inliers.cpu().numpy(),
+                              fx[f"ransac{i}.inliers"]):
+            bad.append(f"RANSAC {i}: winner inliers differ "
+                       f"({int(r.n_inliers)} against "
+                       f"{int(fx[f'ransac{i}.n_inliers'])})")
+    gn_err = []
+    for i, r in enumerate(rec["gn"]):
+        if f"gn{i}.T12" not in fx.files:
+            bad.append(f"GN {i}: the reference has no such attempt")
+            continue
+        e = max(float(np.max(np.abs(r[0].cpu().numpy()
+                                    - fx[f"gn{i}.T12"]))),
+                abs(float(r[1]) - float(fx[f"gn{i}.s12"])))
+        gn_err.append(e)
+        if e > SIM3_T12_LIMIT:
+            bad.append(f"GN {i}: T12 / s12 {e} from the reference's "
+                       f"(limit {SIM3_T12_LIMIT})")
+    readings["sim3_gn_max_abs_err"] = gn_err
+    g_ref = fx["guided"].tolist()
+    if len(rec["guided"]) != len(g_ref) or any(
+            abs(a - b) > GUIDED_BAND for a, b in zip(rec["guided"], g_ref)):
+        bad.append(f"guided counts {rec['guided']}, reference {g_ref}")
+    ev_ref = json.loads(str(fx["events"]))
+    ev = lc.events
+    if loop_events(ev) != loop_events(ev_ref) or closed != any(
+            e["accepted"] for e in ev_ref):
+        bad.append(f"events {loop_events(ev)}, reference "
+                   f"{loop_events(ev_ref)}")
+    else:
+        for a, b in zip(ev, ev_ref):
+            for k in ("corr_trans", "corr_rot_deg", "q_before", "q_after",
+                      "budget_deg", "budget_frac"):
+                if k in b and abs(a[k] - b[k]) > 1e-6 + LOOP_Q_RTOL * abs(
+                        b[k]):
+                    bad.append(f"event {k} {a[k]} against {b[k]}")
+    readings["events"] = [{k: v for k, v in e.items()} for e in ev]
+
+    # each map stage on the JAX stage's input
+    # the accepted closure is the call's last attempt
+    l_acc = [e["l"] for e in ev_ref if e["accepted"]][0]
+    n_gn = sum(1 for k in fx.files if k.startswith("gn")
+               and k.endswith(".T12"))
+    T12 = torch.from_numpy(fx[f"gn{n_gn - 1}.T12"]).cuda()
+    s12 = torch.tensor(float(fx[f"gn{n_gn - 1}.s12"]), device="cuda")
+    if fault == "inverted_t12":
+        T12, s12 = sim3.inverse(T12, s12)
+    stage_ms = {}
+
+    def run_stage(name, fn, m):
+        sync()
+        t = time.perf_counter()
+        out = fn(m)
+        sync()
+        stage_ms[name] = (time.perf_counter() - t) * 1e3
+        return out
+    got = {
+        "propagate": npy(run_stage("propagate", lambda m: lc.propagate(
+            m, q, l_acc, T12, s12)[0], T(states["bow"]))),
+        "fuse": npy(run_stage("fuse", lambda m: lc.fuse(m, q, l_acc),
+                              T(states["propagate"]))),
+        "pose_graph": npy(run_stage("pose_graph", lambda m: lc.pose_graph(
+            m, q, l_acc, T12, s12,
+            torch.from_numpy(fx["propagate.T_old"]).cuda(),
+            torch.from_numpy(fx["propagate.s_init"]).cuda()),
+            T(states["fuse"]))),
+        "gba": npy(run_stage("gba", lambda m: lc.gba(m),
+                             T(states["pose_graph"]))),
+    }
+    for name in ("propagate", "pose_graph"):
+        d = map_diff(got[name], states[name], ("kf_pose", "pt_xyz"))
+        readings[name] = d
+        for f, lim in LOOP_PASS_LIMITS[name].items():
+            if d.get(f, 0.0) > lim:
+                bad.append(f"{name} {f} {d[f]} (limit {lim})")
+    d = map_diff(got["fuse"], states["fuse"],
+                 ("kf_kp_pt", "pt_valid", "pt_n_obs"))
+    readings["fuse"] = d
+    if d.get("kf_kp_pt", 0) > LOOP_PASS_LIMITS["fuse_bindings"] or \
+            d.get("pt_valid", 0) > LOOP_PASS_LIMITS["fuse_bindings"]:
+        bad.append(f"fuse: {d} (limit {LOOP_PASS_LIMITS['fuse_bindings']} "
+                   f"bindings)")
+    kv = states["gba"]["kf_valid"]
+
+    def kf_move(a, b):
+        return float(np.max(np.linalg.norm(
+            a["kf_pose"][kv][:, :3, 3] - b["kf_pose"][kv][:, :3, 3],
+            axis=1)))
+    gba_limit = LOOP_NOISE_MARGIN * float(np.max(fx["gba_ulp_kf_move"]))
+    port_move = kf_move(got["gba"], states["gba"])
+    readings["gba_kf_move"] = port_move
+    if port_move > gba_limit:
+        bad.append(f"gba keyframes {port_move} m from the JAX GBA's "
+                   f"(limit {gba_limit} m)")
+    # the whole closure's output against the chained JAX output
+    chained = kf_move(npy(m_out), states["gba"]) if closed else math.inf
+    readings["chained_kf_move"] = chained
+    print(f"loop pass (q={q}) [{card}{', fault ' + fault if fault else ''}]"
+          f": on_keyframe {wall_ms:.1f} ms; stages on the JAX input "
+          f"{json.dumps({k: round(v, 3) for k, v in stage_ms.items()})} ms;"
+          f" readings {json.dumps(readings)}; GBA limit "
+          f"{gba_limit * 1e3:.4f} mm ({LOOP_NOISE_MARGIN} x the JAX GBA "
+          f"against itself under one-ulp input noise, "
+          f"{json.dumps([round(x * 1e3, 4) for x in fx['gba_ulp_kf_move']])}"
+          f" mm); failed checks {bad}", flush=True)
+    lc.pose_graph, lc.gba = pose_graph, gba
+    return bad, wall_ms, stage_ms
+
+
+def loop_circuit_frames(cfg):
+    """The circuit's frames as bench.py packs them (u16 depth from the
+    renderer's float64 depth, u8 rgb), with their detections, rendered by
+    a pool of processes: (poses, [(gray checksum, d16, rgb8, sem)])."""
+    from object_slam_tpu_torch.datasets.synthetic import (
+        loop_trajectory, render_room_blobs)
+    poses = np.stack(loop_trajectory(LOOP_FRAMES,
+                                     sweep=2 * np.pi * LOOP_TURNS))
+    frames, _ = render_room_blobs(cfg, poses)
+    return poses, frames
+
+
+def run_loop_circuit(cfg, poses, frames, ref, card, loop=True, replay=True,
+                     control=None):
+    """The circuit through track_rgbd_blob (pipelined readback, objects
+    on), with or without loop closing; replay: the JAX run's keyframe
+    decisions and Sim3 draws. control "correction_dropped" plants a fault
+    in the closure: the closer decides and records its event, and the map
+    it returns is the one it was given. Returns the system, the inserted
+    frames, the ATE over the frames run and each frame's host ms."""
+    import torch
+    from object_slam_tpu_torch.eval.ate import ate_rmse
+    from object_slam_tpu_torch.slam.system import SlamSystem
+
+    sys_ = SlamSystem(cfg, enable_objects=True, enable_loop=loop,
+                      device="cuda")
+    blobs = [sys_.builder.pack_frame_blob(d16, rgb8, sa)
+             for _, d16, rgb8, sa in frames]
+    inserts = []
+    insert = sys_._insert_impl
+
+    def insert_impl(m, frame, Tcw, kp_pt, close_mask, frame_id):
+        inserts.append(int(frame_id))
+        return insert(m, frame, Tcw, kp_pt, close_mask, frame_id)
+    sys_._insert_impl = insert_impl
+    if replay:
+        ref_kfs = set(ref["insert_frames"].tolist())
+        sys_._need_keyframe = lambda pend, p: pend["fid"] in ref_kfs
+        sets = [torch.from_numpy(s).cuda() for s in ref["sim3_sets"]]
+
+        def minimal_sets(valid, n_trials=256):
+            if not sets:
+                fail(f"loop circuit replay: more Sim3 draws than the "
+                     f"reference's {len(ref['sim3_sets'])}")
+            return sets.pop(0)
+        if loop:
+            sys_.loop_closer._minimal_sets = minimal_sets
+    if control is not None:
+        if control != "correction_dropped":
+            raise ValueError(control)
+        correct = sys_.loop_closer._correct_loop
+
+        def correct_loop(m, q, l, T12, s12):
+            return m, correct(m, q, l, T12, s12)[1]
+        sys_.loop_closer._correct_loop = correct_loop
+    torch.cuda.synchronize()
+    zero_counts()
+    times = []
+    for i, (blob, iv) in enumerate(blobs):
+        t0 = time.perf_counter()
+        sys_.track_rgbd_blob(blob, iv, timestamp=i / 30.0)
+        times.append((time.perf_counter() - t0) * 1e3)
+    sys_.flush_mapping()
+    torch.cuda.synchronize()
+    traj = sys_.final_trajectory()
+    ok = np.array([t[2] for t in traj])
+    est = np.stack([np.linalg.inv(t[1])[:3, 3] for t in traj])
+    gt = np.stack([np.linalg.inv(T)[:3, 3] for T in poses[:len(traj)]])
+    return sys_, inserts, float(ate_rmse(est[ok], gt[ok])), times
+
+
+def own_basins(ref):
+    """The (q, l) of every closure the JAX package accepts on this circuit:
+    the unperturbed run's and those of its free one-ulp noise runs (the
+    circuit's closure is bimodal under one ulp, (31, 2) or (28, 0):
+    PERF.md section 6)."""
+    runs = [[(e["q"], e["l"], e["accepted"])
+             for e in json.loads(str(ref["events"]))]]
+    runs += [ev for ev, _ in json.loads(str(ref["free_noise"]))]
+    return sorted({(q, l) for ev in runs for q, l, acc in ev if acc})
+
+
+def closure_frame(ref):
+    """The frame whose on_keyframe call accepted the reference's closure:
+    the records of the frames after it are tracked on the corrected map."""
+    rows = [f for f, _, closed in ref["on_keyframe"].tolist() if closed]
+    if len(rows) != 1:
+        fail(f"loop circuit: {LOOP_CIRCUIT_REF} closes {len(rows)} loops; "
+             f"1 is needed")
+    return rows[0]
+
+
+def circuit_bands(ref):
+    """(record band m, record band after the closure m, ATE band m, the
+    frames after the closure): LOOP_NOISE_MARGIN times the farthest of
+    the JAX run's own kept one-ulp noise runs from it, over all frames and
+    over the frames tracked on the corrected map. Before the closure the
+    noise runs drift apart by up to 46 mm; after it they agree within
+    4.7 mm, while the correction moves the records by ~50 mm."""
+    n = int(ref["n_noise"])
+    if n < 3:
+        fail(f"loop circuit: {LOOP_CIRCUIT_REF} holds {n} kept noise runs; "
+             f"3 are needed")
+    rec = ref["rec_tcw"][:, :3, 3]
+    post = np.arange(closure_frame(ref) + 1, len(rec))
+    d = [np.linalg.norm(ref[f"noise.{k}.rec_tcw"][:, :3, 3] - rec, axis=1)
+         for k in range(n)]
+    d_ate = max(abs(float(ref[f"noise.{k}.ate"]) - float(ref["ate"]))
+                for k in range(n))
+    return (LOOP_NOISE_MARGIN * max(float(x.max()) for x in d),
+            LOOP_NOISE_MARGIN * max(float(x[post].max()) for x in d),
+            LOOP_NOISE_MARGIN * d_ate, post)
+
+
+def circuit_checks(ref, bands, sys_, inserts, ate):
+    """The replayed circuit's checks, [(name, reading, limit, ok, band)]:
+    tracked flags, keyframe frames, events and census equal; the farthest
+    record, the farthest record after the closure and the ATE within
+    circuit_bands (band True)."""
+    rec_band, post_band, ate_band, post = bands
+    recs = sys_.trajectory
+    lc = sys_.loop_closer
+    ev = loop_events(lc.events if lc is not None else [])
+    ev_ref = loop_events(json.loads(str(ref["events"])))
+    m = sys_.map
+    labels = m.obj_label[m.obj_valid].cpu().numpy()
+    census = {int(k): int(v) for k, v in zip(*np.unique(
+        labels, return_counts=True))}
+    census_ref = dict(zip(ref["census_labels"].tolist(),
+                          ref["census_counts"].tolist()))
+    tracked = [r.tracked for r in recs]
+    if len(recs) != len(ref["rec_tcw"]):
+        fail(f"loop circuit: {len(recs)} records for "
+             f"{len(ref['rec_tcw'])} frames")
+    d = np.array([np.linalg.norm(r.Tcw[:3, 3] - b[:3, 3])
+                  for r, b in zip(recs, ref["rec_tcw"])])
+    return [
+        ("tracked flags", tracked, "equal",
+         tracked == ref["tracked"].tolist(), False),
+        ("keyframes at", inserts, ref["insert_frames"].tolist(),
+         inserts == ref["insert_frames"].tolist(), False),
+        ("events", ev, ev_ref, ev == ev_ref, False),
+        ("census", census, census_ref, census == census_ref, False),
+        ("farthest record m", float(d.max()), rec_band,
+         float(d.max()) <= rec_band, True),
+        (f"farthest record after the closure (frames {post[0]}-"
+         f"{post[-1]}) m", float(d[post].max()), post_band,
+         float(d[post].max()) <= post_band, True),
+        ("ATE m", ate, f"{float(ref['ate'])} +- {ate_band}",
+         abs(ate - float(ref["ate"])) <= ate_band, True),
+    ]
+
+
+def phase_loop_circuit(card):
+    """The circuit (loop_circuit_tum_vga.npz) through the main path with
+    loop closing on: replayed (the JAX run's keyframe decisions and Sim3
+    draws), held by circuit_checks to its tracked flags, keyframe frames,
+    census and events exactly and its records, records after the closure
+    and ATE within circuit_bands; with its own decisions and sampler, held
+    to at least one accepted closure, every accepted closure within 2
+    keyframes of a closure the JAX package accepts on this circuit
+    (own_basins), and an ATE below the JAX run's with loop closing off;
+    and loop closing off on the first LOOP_OFF_FRAMES frames (the ms/frame
+    baseline). One orb_describe launch per frame in each run. Returns the
+    launches of each run, the ms/frame and the rendered circuit."""
+    from object_slam_tpu_torch.config import SlamConfig
+    ref = np.load(LOOP_CIRCUIT_REF)
+    cfg = SlamConfig.tum_rgbd()
+    t0 = time.perf_counter()
+    poses, frames = loop_circuit_frames(cfg)
+    if not np.allclose([f[0] for f in frames], ref["gray_sum"], rtol=1e-12,
+                       atol=0):
+        fail("loop circuit: the rendered frames differ from the reference "
+             "run's")
+    print(f"loop circuit: rendered {len(frames)} frames in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    bands = circuit_bands(ref)
+    off_ate = float(ref["off.ate"])
+    out, ms = {}, {}
+    times = {}
+    for name, loop, replay, n in (
+            ("replay", True, True, len(frames)),
+            ("own", True, False, len(frames)),
+            ("loop_off", False, False, LOOP_OFF_FRAMES)):
+        sys_, inserts, ate, times[name] = run_loop_circuit(
+            cfg, poses, frames[:n], ref, card, loop=loop, replay=replay)
+        out[name] = read_counts(f"loop circuit {name}", n)
+        steady = times[name][WARMUP:]
+        ms[name] = (float(np.median(steady)), float(np.mean(steady)))
+        if name == "loop_off":
+            print(f"loop circuit loop_off [{card}]: frames 0-{n - 1}: "
+                  f"ms/frame median {ms[name][0]:.3f} mean "
+                  f"{ms[name][1]:.3f}; keyframes at {inserts}; ATE "
+                  f"{ate * 1e3:.3f} mm over these frames", flush=True)
+            continue
+        checks = circuit_checks(ref, bands, sys_, inserts, ate)
+        ev = sys_.loop_closer.events
+        print(f"loop circuit {name} [{card}]: ms/frame median "
+              f"{ms[name][0]:.3f} mean {ms[name][1]:.3f}; keyframes at "
+              f"{inserts}; events {json.dumps(ev)}; ATE {ate * 1e3:.3f} mm "
+              f"(JAX loop on {float(ref['ate']) * 1e3:.3f}, loop off "
+              f"{off_ate * 1e3:.3f}); against the replayed run's checks: "
+              + "; ".join(f"{c[0]} {c[1]} ({'held' if c[3] else 'missed'}, "
+                          f"limit {c[2]})" for c in checks[2:]), flush=True)
+        if name == "replay":
+            failed = [c for c in checks if not c[3]]
+            if failed:
+                fail("loop circuit replay: " + "; ".join(
+                    f"{c[0]} {c[1]} (limit {c[2]})" for c in failed))
+        elif name == "own":
+            acc = [(e["q"], e["l"]) for e in ev if e["accepted"]]
+            basins = own_basins(ref)
+            if not acc:
+                fail("loop circuit own decisions: no accepted closure")
+            near = [b for b in basins
+                    if all(abs(q - b[0]) <= 2 and abs(l - b[1]) <= 2
+                           for q, l in acc)]
+            print(f"loop circuit own decisions [{card}]: closures {acc} "
+                  f"near the JAX closure(s) {near} of {basins}; ATE "
+                  f"{ate * 1e3:.3f} mm against the JAX loop-off ATE "
+                  f"{off_ate * 1e3:.3f} mm", flush=True)
+            if not near:
+                fail(f"loop circuit own decisions: closures {acc} farther "
+                     f"than 2 keyframes from every closure the JAX package "
+                     f"accepts on this circuit {basins}")
+            if not ate < off_ate:
+                fail(f"loop circuit own decisions: ATE {ate} not below the "
+                     f"JAX loop-off ATE {off_ate}")
+            if not all(r.tracked for r in sys_.trajectory):
+                fail("loop circuit own decisions: a frame was lost")
+    on = times["own"][WARMUP:LOOP_OFF_FRAMES]
+    print(f"loop circuit [{card}]: frames {WARMUP}-{LOOP_OFF_FRAMES - 1}, "
+          f"ms/frame median loop on (own) {np.median(on):.3f} against loop "
+          f"off {ms['loop_off'][0]:.3f} "
+          f"({(np.median(on) / ms['loop_off'][0] - 1) * 100:+.1f}%); mean "
+          f"{np.mean(on):.3f} against {ms['loop_off'][1]:.3f}; all 120 "
+          f"frames, loop on: median {ms['own'][0]:.3f} mean "
+          f"{ms['own'][1]:.3f}", flush=True)
+    return out, ms, (poses, frames)
+
+
+def phase_loop_controls(card, poses, frames):
+    """The replayed circuit with the closure's correction dropped
+    (run_loop_circuit's control): its event stays equal, so it must fail
+    one of circuit_bands's bands, or those bands could not tell a lost
+    correction from a working one. (A wrong correction, T12 inverted, is
+    planted in the loop pass: phase_loop_faults.)"""
+    from object_slam_tpu_torch.config import SlamConfig
+    ref = np.load(LOOP_CIRCUIT_REF)
+    cfg = SlamConfig.tum_rgbd()
+    bands = circuit_bands(ref)
+    for control in ("correction_dropped",):
+        sys_, inserts, ate, _ = run_loop_circuit(
+            cfg, poses, frames, ref, card, control=control)
+        checks = circuit_checks(ref, bands, sys_, inserts, ate)
+        failed = [f"{c[0]} {c[1]} (limit {c[2]})" for c in checks
+                  if not c[3]]
+        print(f"loop circuit control {control} [{card}]: events "
+              f"{loop_events(sys_.loop_closer.events)}; fails "
+              f"{'; '.join(failed) or 'nothing'}", flush=True)
+        if not any(c[4] and not c[3] for c in checks):
+            fail(f"loop circuit control {control}: a closure with this "
+                 f"fault passes every band")
+
+
+def phase_kidnap_loop(card):
+    """The 49-frame kidnap of phase_kidnap with loop closing on, so that
+    every LOST frame relocalizes through the BoW candidates (one
+    relocalize_try each), the JAX run's PnP draws replayed
+    (kidnap_loop_tum_vga.npz): the same LOST, staged and relocalized
+    frames, the same candidate keyframe accepted, keyframes equal, and
+    every record within PNP_BAND_M of the reference's. Returns the
+    launches and the cost of one BoW relocalization."""
+    import torch
+    from object_slam_tpu_torch.config import SlamConfig
+    from object_slam_tpu_torch.slam import tracking as trk
+    from object_slam_tpu_torch.slam.system import SlamSystem
+
+    ref = np.load(KIDNAP_LOOP_REF)
+    cfg = SlamConfig.tum_rgbd()
+    frames = kidnap_frames(cfg, ref)
+    if not np.allclose([float(np.sum(f[0], dtype=np.float64))
+                        for f in frames], ref["gray_sum"], rtol=1e-9,
+                       atol=0):
+        fail("kidnap loop: the rendered frames differ from the reference "
+             "run's")
+    sys_ = SlamSystem(cfg, enable_objects=True, enable_loop=True,
+                      device="cuda")
+    blobs = [to_blob(sys_.builder, cfg, d, rgb, sa)
+             for _, d, rgb, sa in frames]
+    pnp = [torch.from_numpy(s).cuda() for s in ref["pnp_sets"]]
+    sim3s = [torch.from_numpy(s).cuda() for s in ref["sim3_sets"]]
+    seen = {"staged": [], "reloc": [], "tries": []}
+    staged_fn, reloc_fn = sys_._track_staged, sys_._relocalize
+    try_fn = trk.relocalize_try
+
+    def minimal_sets(valid, n_trials=256, k=6):
+        if not pnp:
+            fail("kidnap loop: more PnP draws than the reference's "
+                 f"{len(ref['pnp_sets'])}")
+        return pnp.pop(0)
+
+    def track_staged(frame):
+        seen["staged"].append(sys_.frame_id)
+        return staged_fn(frame)
+
+    def relocalize(frame):
+        tr = reloc_fn(frame)
+        seen["reloc"].append((round(float(frame.timestamp) * 30),
+                              tr is not None))
+        return tr
+
+    def reloc_try(K, m, frame, kf, fn, s):
+        tr = try_fn(K, m, frame, kf, fn, s)
+        seen["tries"].append((round(float(frame.timestamp) * 30), kf,
+                              int(tr.n_inliers)))
+        return tr
+    sys_._minimal_sets = minimal_sets
+    sys_.loop_closer._minimal_sets = lambda valid, n_trials=256: sim3s.pop(0)
+    sys_._track_staged, sys_._relocalize = track_staged, relocalize
+    trk.relocalize_try = reloc_try
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        for i, (blob, iv) in enumerate(blobs):
+            sys_.track_rgbd_blob(blob, iv, timestamp=i / 30.0)
+        sys_.flush_mapping()
+    finally:
+        trk.relocalize_try = try_fn
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts("kidnap loop", len(blobs))
+    recs = sys_.trajectory
+    ref_tries = [tuple(x) for x in ref["reloc_tries"].tolist()]
+    acc = [(f, kf) for f, kf, n in seen["tries"] if n >= 50]
+    ref_acc = [(f, kf) for f, kf, n in ref_tries if n >= 50]
+    d_rec = max(float(np.linalg.norm(r.Tcw[:3, 3] - b[:3, 3]))
+                for r, b in zip(recs, ref["rec_tcw"]))
+    print(f"kidnap loop [{card}]: {len(blobs)} frames in {secs:.1f} s; "
+          f"LOST {[i for i, r in enumerate(recs) if not r.tracked]} "
+          f"(reference {np.where(~ref['tracked'])[0].tolist()}); staged "
+          f"{seen['staged']}; relocalizations {seen['reloc']}; BoW attempts "
+          f"(frame, candidate, inliers) {seen['tries']} (reference "
+          f"{ref_tries}); farthest record {d_rec * 1e3:.3f} mm; launches "
+          f"{launches}", flush=True)
+    if [r.tracked for r in recs] != ref["tracked"].tolist():
+        fail("kidnap loop: tracked flags differ from the reference's")
+    if seen["staged"] != ref["staged_frames"].tolist():
+        fail(f"kidnap loop: staged frames {seen['staged']}")
+    if [f for f, _ in seen["reloc"]] != ref["reloc_frames"].tolist() or \
+            [ok for _, ok in seen["reloc"]] != ref["reloc_ok"].tolist():
+        fail(f"kidnap loop: relocalizations {seen['reloc']}")
+    if acc != ref_acc:
+        fail(f"kidnap loop: accepted candidates {acc}, reference {ref_acc}")
+    m = sys_.map
+    kf_frames = m.kf_frame_id[m.kf_valid].cpu().numpy().tolist()
+    if kf_frames != ref["kf_frames"].tolist():
+        fail(f"kidnap loop: KFs at {kf_frames}")
+    if d_rec > PNP_BAND_M:
+        fail(f"kidnap loop: a record {d_rec} m from the reference's")
+    # one BoW relocalization of the first recovered frame's view against
+    # the final map (host clock; it ends in a device read)
+    first = ref_acc[0][0] if ref_acc else None
+    reloc_ms = None
+    if first is not None:
+        frame = sys_.builder.build_rgbd_blob(*blobs[first], 0.0)
+        sys_._minimal_sets = lambda valid, n_trials=256, k=6: \
+            SlamSystem._minimal_sets(sys_, valid, n_trials, k)
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sys_._relocalize_bow(frame)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        reloc_ms = float(np.median(ts))
+        print(f"kidnap loop [{card}]: one BoW relocalization of frame "
+              f"{first} against the final map: {reloc_ms:.3f} ms (median "
+              f"of 5, host clock)", flush=True)
+    return launches, reloc_ms
+
+
+def phase_loop_faults(card):
+    """The closure stage by stage with a fault planted: the pose graph
+    skipped, the GBA skipped, T12 inverted. Each must fail a check of
+    phase_loop_pass."""
+    for fault in ("no_pose_graph", "no_gba", "inverted_t12"):
+        bad, _, _ = phase_loop_pass(card, fault=fault)
+        if not bad:
+            fail(f"loop pass: the planted fault {fault} passes every check")
+        print(f"loop pass fault {fault} [{card}]: fails {len(bad)} checks, "
+              f"first: {bad[0]}", flush=True)
+
+
+PHASE_S = {}
+
+
+def phase_timed(name, fn, *args, **kw):
+    """fn(*args, **kw), its wall seconds kept in PHASE_S and printed."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    PHASE_S[name] = round(time.perf_counter() - t0, 1)
+    print(f"phase {name}: {PHASE_S[name]} s", flush=True)
+    return out
+
+
+def loop_phases(by_phase, card):
+    bad, _, _ = phase_timed("loop_pass", phase_loop_pass, card)
+    if bad:
+        fail("loop pass: " + "; ".join(bad))
+    phase_timed("loop_faults", phase_loop_faults, card)
+    circ, _, (poses, frames) = phase_timed("loop_circuit",
+                                           phase_loop_circuit, card)
+    for k, v in circ.items():
+        by_phase[f"loop_circuit_{k}"] = v
+    phase_timed("loop_controls", phase_loop_controls, card, poses, frames)
+    by_phase["kidnap_loop"], _ = phase_timed("kidnap_loop",
+                                             phase_kidnap_loop, card)
+
+
+T_START = time.perf_counter()
+
+
 def main():
     try:
         import torch
@@ -1464,33 +2197,46 @@ def main():
         "bound_by")}
     # every path: the counts set to 0 just before it, read just after
     by_phase = {}
-    by_phase["strict_objects_off"] = run_path(cfg, poses, frames, sems,
-                                              card, False)[2]
-    by_phase["strict_objects_on"], strict_ms = phase_objects(
-        cfg, poses, frames, sems, card)
+    by_phase["strict_objects_off"] = phase_timed(
+        "strict_objects_off", run_path, cfg, poses, frames, sems, card,
+        False)[2]
+    by_phase["strict_objects_on"], strict_ms = phase_timed(
+        "strict_objects_on", phase_objects, cfg, poses, frames, sems, card)
     # the main path as bench.py runs it: the default configuration
     # (pipelined readback), blobs, objects on
     main_cfg = SlamConfig.tum_rgbd()
-    bench = phase_bench(main_cfg, poses, frames, sems, card, strict_ms)
+    bench = phase_timed("bench", phase_bench, main_cfg, poses, frames, sems,
+                        card, strict_ms)
     by_phase["bench_host_in_the_loop"] = bench["host"][0]
     by_phase["bench_device_resident"] = bench["device"][0]
-    kid = phase_kidnap(main_cfg, make_scene(main_cfg), card)
+    kid = phase_timed("kidnap", phase_kidnap, main_cfg,
+                      card)
     by_phase["kidnap_replay"] = kid["replay"]
     by_phase["kidnap_own_sampler"] = kid["own"]
-    by_phase["tum_driver"] = phase_tum(main_cfg, poses, frames, sems, card)
+    by_phase["tum_driver"] = phase_timed("tum_driver", phase_tum, main_cfg,
+                                         poses, frames, sems, card)
+    # loop closing: one closure stage by stage (and with each planted
+    # fault), the circuit replayed / own decisions / loop off, the kidnap
+    # through the BoW relocalization, run_tum_torch.py --loop
+    loop_phases(by_phase, card)
+    by_phase["tum_driver_loop"] = phase_timed(
+        "tum_driver_loop", phase_tum, main_cfg, poses, frames, sems, card,
+        loop=True)
     # KITTI stereo at full width: one mapping pass stage by stage; inline
     # then async mapping, each with the reference's keyframe decisions
     # replayed and with its own; planted faults; then the driver
-    phase_kitti_pass(card)
+    phase_timed("kitti_pass", phase_kitti_pass, card)
     kitti_ms = {}
     for mode in ("sync", "async"):
         for replay in (True, False):
             key = f"kitti_{mode}_" + ("replay" if replay else "own")
-            by_phase[key], kitti_ms[key] = phase_kitti(
-                kitti_poses, kitti_frames, card, mode == "async", replay,
-                witness=KITTI_WITNESS_KFS[mode])
-    phase_kitti_controls(kitti_poses, kitti_frames, card)
-    by_phase["kitti_objects"] = phase_kitti_objects(card)
+            by_phase[key], kitti_ms[key] = phase_timed(
+                key, phase_kitti, kitti_poses, kitti_frames, card,
+                mode == "async", replay, witness=KITTI_WITNESS_KFS[mode])
+    phase_timed("kitti_controls", phase_kitti_controls, kitti_poses,
+                kitti_frames, card)
+    by_phase["kitti_objects"] = phase_timed("kitti_objects",
+                                            phase_kitti_objects, card)
     print(f"KITTI [{card}]: ms/frame median / mean, own decisions: sync "
           f"{kitti_ms['kitti_sync_own'][0]:.3f} / "
           f"{kitti_ms['kitti_sync_own'][1]:.3f}, async "
@@ -1500,8 +2246,9 @@ def main():
           f"{kitti_ms['kitti_sync_replay'][1]:.3f}, async "
           f"{kitti_ms['kitti_async_replay'][0]:.3f} / "
           f"{kitti_ms['kitti_async_replay'][1]:.3f}", flush=True)
-    by_phase["kitti_driver"] = phase_kitti_driver(kitti_poses, kitti_frames,
-                                                  card)
+    by_phase["kitti_driver"] = phase_timed("kitti_driver",
+                                           phase_kitti_driver, kitti_poses,
+                                           kitti_frames, card)
     for row in rows:
         row["launches"] = by_phase["bench_host_in_the_loop"][row["name"]]
         row["launches_per_frame"] = row["launches"] // N_FRAMES
@@ -1516,6 +2263,8 @@ def main():
             if k != "bound_by" and not (isinstance(v, float)
                                         and math.isfinite(v)):
                 fail(f"{row['name']} KITTI field {k} is not a finite number")
+    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all; "
+          f"phases (s) {json.dumps(PHASE_S)}", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,9 @@ It covers the RGB-D main path: ORB extraction (its describe step is one
 CUDA kernel launch per frame, ops/describe.py), tracking, keyframe
 insertion, local mapping with local BA, the object layer, the single-blob
 ingestion, the one-frame-lagged readback, the staged path with
-relocalization, and the TUM tail (loaders, PNG codec, trajectory
-writers, ATE / RPE). ROADMAP.md lists what later slices port.
+relocalization, the TUM tail (loaders, PNG codec, trajectory writers,
+ATE / RPE), the stereo sensor with async mapping, and loop closing with
+the BoW relocalization. ROADMAP.md lists what later slices port.
 """
 
 __version__ = "0.1.0"

@@ -497,6 +497,28 @@ def orbit_poses(n: int, radius: float = 0.4, step: float = 0.03):
     return poses
 
 
+def loop_trajectory(n: int, radius: float = 0.7, sweep: float = 2 * np.pi,
+                    yaw_gain: float = 1.0, bob: float = 0.03):
+    """A closed loop inside the room: the camera circles a ring through the
+    origin while panning, so a sweep of one turn returns to the starting
+    pose (a revisit for loop closing). World->camera [4, 4] f32 poses;
+    pose 0 is the identity (the reference's, number for number)."""
+    poses = []
+    for i in range(n):
+        th = sweep * i / n
+        C = np.array([radius * np.sin(th),
+                      bob * np.sin(3.0 * th),
+                      radius * (1.0 - np.cos(th)) * 0.5], np.float32)
+        psi = yaw_gain * th
+        c, s = np.cos(psi), np.sin(psi)
+        Rwc = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = Rwc.T
+        T[:3, 3] = -Rwc.T @ C
+        poses.append(T)
+    return poses
+
+
 def drive_trajectory(n: int, speed: float = 0.8, yaw_rate: float = 0.002,
                      start_z: float = 0.0):
     """Forward 'driving' motion with a gentle curve (KITTI-style): the
@@ -566,3 +588,62 @@ def render_street(cfg, n_frames: int, first: int = 0,
             initargs=(cfg, n_frames)) as pool:
         frames = pool.map(_street_render, poses, chunksize=1)
     return poses, frames, time.perf_counter() - t0
+
+
+_ROOM_WORKER = {}
+
+
+def bench_room(cfg):
+    """bench.py's room: seed 3, three object boxes of size 0.9."""
+    scene = SyntheticScene.make(cfg, seed=3, n_objects=3, plane_z=4.0)
+    for b in scene.boxes:
+        b["size"] = 0.9
+    return scene
+
+
+def _room_worker_init(cfg):
+    _ROOM_WORKER["scene"] = bench_room(cfg)
+    _ROOM_WORKER["cfg"] = cfg
+
+
+def _room_render(T):
+    scene, cfg = _ROOM_WORKER["scene"], _ROOM_WORKER["cfg"]
+    gray, depth, rgb, sem = scene.render_rgbd(T)
+    d16 = np.clip(depth * cfg.camera.depth_map_factor, 0,
+                  65535).astype(np.uint16)
+    rgb8 = np.clip(rgb, 0, 255).astype(np.uint8)
+    return (float(np.sum(gray, dtype=np.float64)), d16, rgb8,
+            scene.sem_arrays(sem, cfg.semantic.max_instances))
+
+
+def _room_render_f32(T):
+    scene, cfg = _ROOM_WORKER["scene"], _ROOM_WORKER["cfg"]
+    gray, depth, rgb, sem = scene.render_rgbd(T)
+    return (gray.astype(np.float32), depth.astype(np.float32),
+            rgb.astype(np.float32),
+            scene.sem_arrays(sem, cfg.semantic.max_instances))
+
+
+def _room_pool(cfg, poses, fn, workers):
+    import multiprocessing as mp
+    import time
+    workers = workers or min(os.cpu_count() or 1, 8)
+    t0 = time.perf_counter()
+    with mp.get_context("spawn").Pool(
+            workers, initializer=_room_worker_init,
+            initargs=(cfg,)) as pool:
+        frames = pool.map(fn, list(poses), chunksize=1)
+    return frames, time.perf_counter() - t0
+
+
+def render_room_blobs(cfg, poses, workers: int | None = None):
+    """bench.py's room at the given poses, packed as bench.py packs a
+    frame (u16 depth from the float64 depth, u8 rgb) by a pool of spawned
+    processes: ([(gray checksum, d16, rgb8, sem_arrays)], seconds)."""
+    return _room_pool(cfg, poses, _room_render, workers)
+
+
+def render_room(cfg, poses, workers: int | None = None):
+    """bench.py's room at the given poses, rendered by a pool of spawned
+    processes: ([(gray, depth, rgb as float32, sem_arrays)], seconds)."""
+    return _room_pool(cfg, poses, _room_render_f32, workers)

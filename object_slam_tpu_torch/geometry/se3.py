@@ -86,10 +86,26 @@ def exp(xi):
 
 
 def log(T):
-    """[..., 4, 4] transform -> [..., 6] twist (rho, phi)."""
+    """[..., 4, 4] transform -> [..., 6] twist (rho, phi).
+
+    The reference solves J_l(phi) rho = t; here the inverse left Jacobian
+    is in closed form, J_l^-1 = I - K / 2 + c K^2 with c = (1 - theta sin
+    / (2 (1 - cos))) / theta^2, so no batched LU (whose info check syncs
+    the card) runs per call: the pose graph takes 280 of these per solve.
+    Below theta = 0.1, c is its series 1/12 + theta^2/720 + theta^4/30240
+    (the next term is below 1e-12), since f32 loses 1 - cos there."""
     phi = so3_log(T[..., :3, :3])
-    Jl = _left_jacobian(phi)
-    rho = torch.linalg.solve(Jl, T[..., :3, 3][..., None])[..., 0]
+    t2 = torch.sum(phi * phi, dim=-1)[..., None, None]
+    small = t2 < 1e-2
+    safe = torch.where(small, torch.ones_like(t2), t2)
+    th = torch.sqrt(safe)
+    c_big = (1.0 - th * torch.sin(th)
+             / (2.0 * (1.0 - torch.cos(th)))) / safe
+    c = torch.where(small, 1.0 / 12.0 + t2 / 720.0 + t2 * t2 / 30240.0,
+                    c_big)
+    K = hat(phi)
+    Jinv = _eye3(phi) - 0.5 * K + c * (K @ K)
+    rho = (Jinv @ T[..., :3, 3][..., None])[..., 0]
     return torch.cat([rho, phi], dim=-1)
 
 

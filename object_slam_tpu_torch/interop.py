@@ -17,6 +17,7 @@ import torch
 
 from object_slam_tpu_torch.device import resolve_device
 from object_slam_tpu_torch.features.extractor import Keypoints
+from object_slam_tpu_torch.loop.vocabulary import Vocabulary
 from object_slam_tpu_torch.semantic.object2d import Object2DSlab, empty_slab
 from object_slam_tpu_torch.slam.frame import FrameData
 from object_slam_tpu_torch.slam.map_state import MapState
@@ -138,3 +139,39 @@ def frame_to_numpy(fr: FrameData) -> dict:
            for f in FrameData._fields if f != "obj"}
     out["obj"] = slab_to_numpy(fr.obj)
     return out
+
+
+def vocabulary_from_numpy(centers, idf) -> Vocabulary:
+    """The reference Vocabulary's level tables (a list of [k^(l+1), 8]
+    uint32 arrays) and idf -> the port's Vocabulary."""
+    return Vocabulary([np.asarray(c, np.uint32) for c in centers],
+                      np.asarray(idf, np.float32))
+
+
+def loop_state_to_numpy(closer) -> dict:
+    """A LoopCloser's host state (the reference's or the port's): the
+    consistency groups as members (concatenated), their sizes and counts;
+    last_loop_kf and the cooldown."""
+    groups = closer.consistent_groups
+    return {
+        "group_members": np.asarray(
+            [k for g, _ in groups for k in sorted(g)], np.int32),
+        "group_sizes": np.asarray([len(g) for g, _ in groups], np.int32),
+        "group_counts": np.asarray([c for _, c in groups], np.int32),
+        "last_loop_kf": np.int32(closer.last_loop_kf),
+        "cooldown": np.int32(closer._cooldown),
+    }
+
+
+def loop_state_from_numpy(closer, arrays: Mapping[str, np.ndarray]):
+    """Set a LoopCloser's host state from loop_state_to_numpy's arrays."""
+    members = np.asarray(arrays["group_members"]).tolist()
+    groups, at = [], 0
+    for size, cnt in zip(np.asarray(arrays["group_sizes"]).tolist(),
+                         np.asarray(arrays["group_counts"]).tolist()):
+        groups.append((set(members[at:at + size]), int(cnt)))
+        at += size
+    closer.consistent_groups = groups
+    closer.last_loop_kf = int(arrays["last_loop_kf"])
+    closer._cooldown = int(arrays["cooldown"])
+    return closer

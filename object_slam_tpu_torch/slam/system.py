@@ -14,8 +14,9 @@ keyframe insertion, the local-mapping pass, relocalization) after the
 next frame's dispatch. ``pipelined_readback=False`` resolves every frame
 at once. A LOST frame, and every frame with ``tracking.fused=False``,
 takes the staged path (``_track_staged``), whose failure branch
-relocalizes against the whole map (``_relocalize``: brute match, PnP
-RANSAC).
+relocalizes (``_relocalize``): with loop closing on, against the BoW
+candidate keyframes one by one (``tracking.relocalize_try``); without it,
+against the whole map (brute match, PnP RANSAC).
 
 With ``async_mapping=True`` each keyframe's local-mapping pass runs on a
 snapshot of the map in a worker thread with its own CUDA stream (the
@@ -23,9 +24,13 @@ LocalMapping thread's analogue, ``_AsyncMapping``) while tracking goes on;
 the result is merged in at the next keyframe, when ready on the staged
 path, and at ``flush_mapping``.
 
+With ``enable_loop=True`` every keyframe gets its BoW row and goes through
+loop detection (``loop.loop_closing.LoopCloser.on_keyframe``) once its
+local-mapping pass is in the map: after the pass inline, or after the
+merge of its async pass, on the tracker's stream.
+
 Not in this slice, and raising ``NotImplementedError`` with the ROADMAP
-item that ports them: loop closing and the vocabulary relocalization,
-the mono sensor, localization mode.
+item that ports them: the mono sensor, localization mode.
 
 State machine (Tracking.h:99-105): NOT_INITIALIZED -> OK <-> LOST.
 """
@@ -46,6 +51,9 @@ from object_slam_tpu_torch.config import SlamConfig
 from object_slam_tpu_torch.device import resolve_device
 from object_slam_tpu_torch.features import matching
 from object_slam_tpu_torch.geometry import se3
+from object_slam_tpu_torch.loop import kfdb
+from object_slam_tpu_torch.loop.loop_closing import LoopCloser
+from object_slam_tpu_torch.loop.vocabulary import Vocabulary
 from object_slam_tpu_torch.ops.scatter import scatter_set, topk
 from object_slam_tpu_torch.slam import local_mapping, map_ops
 from object_slam_tpu_torch.slam import tracking as trk
@@ -101,6 +109,7 @@ class _AsyncMapping:
         self._pool = ThreadPoolExecutor(max_workers=1,
                                         thread_name_prefix="local-mapping")
         self.pending = None   # (future, snapshot, done event or None)
+        self.pending_kf = -1  # the keyframe whose pass is in flight
         self.worker_ms: List[float] = []
 
     @staticmethod
@@ -148,6 +157,7 @@ class _AsyncMapping:
                 t.record_stream(self.stream)
         fut = self._pool.submit(self._work, m, kf_id, fast, start, done)
         self.pending = (fut, m, done)
+        self.pending_kf = kf_id
 
     def ready(self) -> bool:
         """True when a pass is pending, its thread has finished and its
@@ -168,6 +178,7 @@ class _AsyncMapping:
             return m_now
         fut, snap, done = self.pending
         self.pending = None
+        self.pending_kf = -1
         res = fut.result()
         if done is not None:
             cur = torch.cuda.current_stream(self.device)
@@ -184,6 +195,7 @@ class _AsyncMapping:
             return
         fut = self.pending[0]
         self.pending = None
+        self.pending_kf = -1
         fut.result()
 
     def close(self):
@@ -196,11 +208,10 @@ class SlamSystem:
                  enable_mapping: bool = True,
                  enable_loop: bool = False,
                  async_mapping: bool = False,
+                 vocab_path: Optional[str] = None,
                  device=None, profile: bool = False, metrics=None):
         self.cfg = cfg or SlamConfig()
         cfg = self.cfg
-        if enable_loop:
-            raise _not_in_slice("enable_loop=True", "loop closing")
         if not enable_mapping:
             raise _not_in_slice("localization mode (enable_mapping=False)",
                                 "checkpoint, localization mode and reset")
@@ -212,8 +223,19 @@ class SlamSystem:
         self.inv_sigma2 = self.builder.inv_sigma2
         self.scale_factors = self.builder.scale_factors
         self.log_scale = math.log(cfg.orb.scale_factor)
-        self.map = init_map(cfg.caps, cfg.objects.history_capacity,
-                            device=self.device)
+        # per-stage host time (ms), synchronized per span when profiling
+        self.profile = profile
+        self.stage_ms: dict = {}
+        self.loop_closer = None
+        if enable_loop:
+            # a DBoW2 text vocabulary (the reference's ORBvoc.txt format),
+            # or the package's own
+            vocab = (Vocabulary.load_dbow2_text(vocab_path) if vocab_path
+                     else None)
+            self.loop_closer = LoopCloser(
+                cfg, self.K, vocab=vocab, fix_scale=cfg.sensor != "mono",
+                device=self.device, span=self._span)
+        self.map = self._empty_map()
         self.enable_mapping = enable_mapping
         self.objects = (ObjectEngine(cfg, self.K, device=self.device)
                         if enable_objects else None)
@@ -242,9 +264,6 @@ class SlamSystem:
         self.rng = torch.Generator(device=self.device)
         self.rng.manual_seed(0)
         self.n_relocalized = 0
-        # per-stage host time (ms), synchronized per span when profiling
-        self.profile = profile
-        self.stage_ms: dict = {}
         # local-mapping passes run / on the abbreviated schedule, and the
         # async merges by where they happened
         self.mapping_stats = {"passes": 0, "abbreviated": 0,
@@ -255,6 +274,22 @@ class SlamSystem:
 
     def _eye(self):
         return torch.eye(4, dtype=torch.float32, device=self.device)
+
+    def _empty_map(self) -> MapState:
+        """init_map, with a [max_keyframes, n_words] kf_bow when loop
+        closing is on."""
+        n_words = (self.loop_closer.vocab.n_words
+                   if self.loop_closer is not None else 0)
+        return init_map(self.cfg.caps, self.cfg.objects.history_capacity,
+                        n_bow_words=n_words, device=self.device)
+
+    def _on_keyframe(self, kf_id: int):
+        """Loop detection (and closure) for a keyframe whose mapping pass
+        is in the map."""
+        if self.loop_closer is None or kf_id < 0:
+            return
+        with self._span("loop.on_keyframe"):
+            self.map, _ = self.loop_closer.on_keyframe(self.map, kf_id)
 
     @contextmanager
     def _span(self, name: str):
@@ -363,6 +398,7 @@ class SlamSystem:
             self.last_kf_id = int(kf_id)
             self.frames_since_kf = 0
             self._kf_inliers = n_depth
+            self._on_keyframe(self.last_kf_id)
             self._record(frame, True)
         else:
             self._record(frame, False)
@@ -412,9 +448,11 @@ class SlamSystem:
         """Fold a pending async pass into the live map."""
         if self._async is None or self._async.pending is None:
             return
+        merged_kf = self._async.pending_kf
         with self._span("mapping_merge"):
             self.map = self._async.merge(self.map)
         self.mapping_stats[where + "_merges"] += 1
+        self._on_keyframe(merged_kf)
 
     def _insert_and_map(self, frame, Tcw, kp_pt, spawn, frame_id, n_inl):
         """Insert a keyframe and run the local-mapping pass on it (inline,
@@ -440,6 +478,7 @@ class SlamSystem:
         else:
             with self._span("local_mapping"):
                 self.map = self._mapping_pass(self.map, kf_id, fast)
+            self._on_keyframe(kf_id)
         return frame
 
     # ------------------------------------------------------------------
@@ -591,10 +630,15 @@ class SlamSystem:
                                           n_trials, k)
 
     def _relocalize(self, frame):
-        """Relocalization without a vocabulary (Tracking.cc:1606-1767,
-        reduced): one brute match of the frame's descriptors against every
-        valid map point, PnP RANSAC on the matches, accepted with >= 30
-        inliers and a finite, sane pose."""
+        """Relocalization (Tracking.cc:1606-1767). With loop closing on:
+        the BoW candidates (KeyFrameDatabase.cc:199-310) in score order,
+        one ``tracking.relocalize_try`` each, the first with >= 50 inliers
+        accepted. Without: one brute match of the frame's descriptors
+        against every valid map point, PnP RANSAC on the matches, accepted
+        with >= 30 inliers and a finite, sane pose."""
+        if self.loop_closer is not None:
+            with self._span("relocalize"):
+                return self._relocalize_bow(frame)
         m = self.map
         P = m.pt_xyz.shape[0]
         with self._span("relocalize"):
@@ -620,6 +664,28 @@ class SlamSystem:
                                            torch.full_like(midx, -1)),
             inlier=res.inliers, n_matches=torch.sum(mok.to(torch.int32)),
             n_inliers=res.n_inliers)
+
+    def _relocalize_bow(self, frame):
+        m = self.map
+        _, bow = self.loop_closer.vocab.transform(frame.desc, frame.valid)
+        cand, scores = kfdb.detect_reloc_candidates(m.kf_bow, m.kf_valid,
+                                                    bow)
+        cand_np = cand.cpu().numpy()
+        if not cand_np.any():
+            return None
+        # every candidate gets its own attempt until one holds
+        # (Tracking.cc:1640-1751); score order gives the early exit its
+        # best shot (the reference's numpy argsort, on the same values)
+        order = np.argsort(-scores.cpu().numpy() * cand_np)
+        for kf in order[:int(cand_np.sum())]:
+            if not cand_np[kf]:
+                break
+            tr = trk.relocalize_try(self.K, m, frame, int(kf),
+                                    self._minimal_sets, self.inv_sigma2)
+            if int(tr.n_inliers) >= 50:
+                self.n_relocalized += 1
+                return tr
+        return None
 
     # ------------------------------------------------------------------
     # the fused path and its lagged readback
@@ -819,11 +885,14 @@ class SlamSystem:
     def reset(self):
         """Clear map, trajectory and tracker state (System::Reset ->
         Tracking::Reset, Tracking.cc:1769-1815); a mapping pass in flight is
-        joined and dropped."""
+        joined and dropped. With loop closing on, the BoW rows and the
+        closer's consistency groups clear too."""
         if self._async is not None:
             self._async.join()
-        self.map = init_map(self.cfg.caps, self.cfg.objects.history_capacity,
-                            device=self.device)
+        self.map = self._empty_map()
+        if self.loop_closer is not None:
+            self.loop_closer.consistent_groups = []
+            self.loop_closer.last_loop_kf = -10
         if self.objects is not None:
             self.objects.semantic_constraints = 0
         self.state = NOT_INITIALIZED

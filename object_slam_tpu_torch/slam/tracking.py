@@ -3,11 +3,11 @@
 Counterpart of object_slam_tpu/slam/tracking.py: motion-model tracking,
 reference-KF tracking, local-map point selection and tracking, the fused
 per-frame chain (with the object stages as hooks) and the keyframe
-policy. The reference's ``lax.cond`` gates become host ``if``s on device
-scalars.
+policy, and one relocalization attempt against a candidate keyframe
+(``relocalize_try``). The reference's ``lax.cond`` gates become host
+``if``s on device scalars.
 
-Relocalization (``relocalize_try``) and the localization-mode VO tracker
-are not in this slice (ROADMAP.md).
+The localization-mode VO tracker is not in this slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ from object_slam_tpu_torch.geometry import camera as cam_mod
 from object_slam_tpu_torch.geometry import se3
 from object_slam_tpu_torch.ops.scatter import scatter_or, scatter_set, topk
 from object_slam_tpu_torch.slam.frame import FrameData
-from object_slam_tpu_torch.slam.map_state import MapState, obs_mask
+from object_slam_tpu_torch.slam.map_state import (MapState, covisibility,
+                                                  obs_mask)
 from object_slam_tpu_torch.solvers.pose_opt import (PoseObs, pose_optimize,
                                                     pose_optimize_best)
 
@@ -153,6 +154,68 @@ def track_reference_kf(K, m: MapState, frame: FrameData, ref_kf,
                          frame.uv.device)
     return _optimize_from_matches(K, m, frame, T0, kp_pt,
                                   inv_sigma2_lvl, min_matches)
+
+
+def relocalize_try(K, m: MapState, frame: FrameData, kf_id: int, sets_fn,
+                   inv_sigma2_lvl) -> TrackResult:
+    """One relocalization attempt against candidate keyframe kf_id
+    (Tracking.cc:1606-1767): descriptor match to its mapped keypoints, PnP
+    RANSAC on the index sets ``sets_fn(matched)`` gives, pose optimization,
+    a guided projection re-search over its covisible points, and a final
+    optimization. n_inliers is 0 unless the pose is finite and PnP found
+    its consensus; the caller accepts at >= 50."""
+    from object_slam_tpu_torch.solvers.epnp import pnp_ransac_sets
+    N = frame.uv.shape[0]
+    P = m.pt_xyz.shape[0]
+    Kcap = m.kf_pose.shape[0]
+    dev = frame.uv.device
+
+    kf_pt = m.kf_kp_pt[kf_id]
+    rows_ok = (m.kf_kp_valid[kf_id] & (kf_pt >= 0)
+               & m.pt_valid[torch.clamp(kf_pt, 0, P - 1).long()])
+    midx, mok = matching.brute_match(
+        m.kf_kp_desc[kf_id], rows_ok, frame.desc, frame.valid,
+        th_dist=50, nn_ratio=0.75,
+        angle_a=m.kf_kp_angle[kf_id], angle_b=frame.angle)
+    kp_pt = _match_table(N, midx, mok, kf_pt, dev)
+    matched = (kp_pt >= 0) & frame.valid
+
+    pw = m.pt_xyz[torch.clamp(kp_pt, 0, P - 1).long()]
+    pnp = pnp_ransac_sets(sets_fn(matched), K, pw, frame.uv, matched,
+                          min_inliers=10)
+    tr = _optimize_from_matches(K, m, frame, pnp.Tcw, kp_pt,
+                                inv_sigma2_lvl, 10)
+
+    # guided re-search over the candidate's covisible point set
+    W = covisibility(m)[kf_id]
+    nbr = (W > 0) | (torch.arange(Kcap, device=dev) == kf_id)
+    A = m.kf_kp_pt
+    cand_pts = scatter_or(torch.zeros(P, dtype=torch.bool, device=dev),
+                          torch.clamp(A, 0, P - 1).reshape(-1),
+                          ((A >= 0) & m.kf_kp_valid
+                           & nbr[:, None]).reshape(-1))
+    cand_pts = cand_pts & m.pt_valid
+    pc = se3.apply(tr.Tcw, m.pt_xyz[None])[0]
+    uv = cam_mod.project(K, pc)
+    already = scatter_or(torch.zeros(P, dtype=torch.bool, device=dev),
+                         torch.clamp(tr.kp_pt, 0, P - 1), tr.kp_pt >= 0)
+    vis = cand_pts & ~already & (pc[:, 2] > 0) & cam_mod.in_image(K, uv)
+    kp_free = frame.valid & (tr.kp_pt < 0)
+    midx2, mok2 = matching.search_by_projection(
+        uv, torch.zeros(P, dtype=torch.int32, device=dev), m.pt_desc, vis,
+        frame.uv, frame.level, frame.desc, kp_free,
+        radius_per_row=torch.full((P,), 10.0, device=dev), th_dist=100,
+        nn_ratio=None, level_window=8)
+    tgt2 = torch.clamp(midx2, 0, N - 1).long()
+    kp_pt2 = scatter_set(tr.kp_pt, tgt2, torch.where(
+        mok2, torch.arange(P, dtype=torch.int32, device=dev),
+        tr.kp_pt[tgt2]))
+
+    tr2 = _optimize_from_matches(K, m, frame, tr.Tcw, kp_pt2,
+                                 inv_sigma2_lvl, 50)
+    sane = torch.all(torch.isfinite(tr2.Tcw)) & pnp.ok
+    return tr2._replace(n_inliers=torch.where(
+        sane, tr2.n_inliers, torch.zeros_like(tr2.n_inliers)))
 
 
 def select_local_points(m: MapState, kp_pt, n_local_kf: int = 16,

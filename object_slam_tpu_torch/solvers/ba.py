@@ -9,8 +9,9 @@ preconditioned CG; LM step control accepts only cost-decreasing steps.
 Observations use the reference's blocked layout (``block_n``: [Kk,
 block_n] rows per keyframe) and per-point observation-slot table
 (``pt_obs_slot``), so the per-KF and per-point reductions are axis sums;
-the reference's scatter (segment-sum) forms serve global BA and the
-sharded BA, which later slices port.
+``global_ba`` builds that table over the whole map (``obs_slot_table``)
+where the reference takes segment sums. The sharded BA is a later
+slice's.
 """
 
 from __future__ import annotations
@@ -299,3 +300,35 @@ def local_ba(K: Intrinsics, prob: BAProblem,
     chi2, z, stereo = ba_chi2(K, prob2, kf_pose, pt_xyz, block_n=block_n)
     keep2 = keep & (chi2 <= gate) & (z > 0)
     return kf_pose, pt_xyz, keep2
+
+
+def obs_slot_table(prob: BAProblem):
+    """[P, M] int64: each point's live observation indices in ascending
+    order (-1 empty), M the most any point has. Only live observations
+    (valid, on a valid keyframe and point) carry weight, so the per-point
+    sums over this table are the segment sums, summed in one fixed order:
+    the card's atomic index_add_ sums in a different order each run."""
+    P = prob.pt_xyz.shape[0]
+    live = (prob.obs_valid & prob.kf_valid[prob.obs_kf.long()]
+            & prob.pt_valid[prob.obs_pt.long()])
+    o = torch.nonzero(live).squeeze(1)
+    pt = prob.obs_pt.long()[o]
+    order = torch.argsort(pt, stable=True)
+    o, pt = o[order], pt[order]
+    counts = torch.bincount(pt, minlength=P)
+    M = max(int(counts.max()), 1) if o.numel() else 1
+    rank = torch.arange(o.numel(), device=o.device) \
+        - (torch.cumsum(counts, 0) - counts)[pt]
+    table = torch.full((P, M), -1, dtype=torch.long, device=o.device)
+    table[pt, rank] = o
+    return table
+
+
+def global_ba(K: Intrinsics, prob: BAProblem, iters: int = 10, *,
+              block_n: int):
+    """GlobalBundleAdjustment (Optimizer.cc:41-237): robust Huber edges
+    over the whole map, the caller fixing kf_fixed[0]; the observations in
+    [K, block_n] row-major blocks, the per-point sums over obs_slot_table
+    (the reference's segment sums, in a fixed order)."""
+    return ba_iterate(K, prob, iters, block_n=block_n,
+                      pt_obs_slot=obs_slot_table(prob))

@@ -5,6 +5,7 @@
                                           [--blob {host,device}] [--strict]
     python scripts/profile_torch_slice.py --sensor stereo [--async-mapping]
                                           [--frames 24] [--window 8]
+    python scripts/profile_torch_slice.py --loop
 
 Runs SlamSystem.track_rgbd (TUM VGA, strict readback) on frames rendered
 like chip_smoke.py, objects on with the frames' detections (or objects
@@ -28,7 +29,17 @@ launches per frame, CUDA synchronizations per frame, the device time of
 the port's own kernels, the kernels and host ops that take the most time,
 and, for each object stage (the Object2D build, association, the
 semantic optimizer, the object update), its launches, sync-like calls and
-device time per frame and its top ops by device time. Needs a card.
+device time per frame and its top ops by device time.
+
+``--loop`` profiles loop closing at TUM-VGA width instead, on the closure
+of chip_smoke.py's loop pass (tests/torch_fixtures/loop_pass_tum_vga.npz,
+the JAX Sim3 draws replayed): one on_keyframe that detects without
+closing (the consistency groups emptied first), then the one that closes
+the loop, each after a warm-up call; for each it prints the host ms, the
+kernel launches and sync-like calls, and for every stage range
+(loop.detect, loop.sim3, loop.propagate, loop.fuse, loop.pose_graph,
+loop.gba, loop.quality) the same plus its device time and top ops.
+Needs a card.
 """
 
 from __future__ import annotations
@@ -124,6 +135,73 @@ def span_host_ms(events, w):
     return out
 
 
+LOOP_RANGES = ("loop.detect", "loop.sim3", "loop.propagate", "loop.fuse",
+               "loop.pose_graph", "loop.gba", "loop.quality")
+
+
+def profile_loop(card):
+    """on_keyframe without and with the accepted closure, profiled."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import LOOP_PASS_REF, LOOP_STAGES
+    from object_slam_tpu_torch import interop
+    from object_slam_tpu_torch.config import SlamConfig
+    from object_slam_tpu_torch.geometry.camera import Intrinsics
+    from object_slam_tpu_torch.loop.loop_closing import LoopCloser
+    from object_slam_tpu_torch.slam.map_state import init_map
+
+    fx = np.load(LOOP_PASS_REF)
+    cfg = SlamConfig.tum_rgbd()
+    q = int(fx["q"])
+    state_in = {k[len("state_in."):]: fx[k] for k in fx.files
+                if k.startswith("state_in.")}
+
+    def closer():
+        lc = LoopCloser(cfg, Intrinsics.from_config(cfg.camera),
+                        device="cuda")
+        interop.loop_state_from_numpy(lc, state_in)
+        sets = [torch.from_numpy(x).cuda() for x in fx["sim3_sets"]]
+        lc._minimal_sets = lambda valid, n_trials=256: sets.pop(0)
+        return lc
+    base = interop.map_state_to_numpy(init_map(
+        cfg.caps, cfg.objects.history_capacity,
+        n_bow_words=closer().vocab.n_words, device="cpu"))
+    m_in = interop.map_state_from_numpy(
+        interop.stage_maps(fx, base, LOOP_STAGES)["in"], device="cuda")
+    out = {"card": card, "q": q}
+    for name, groups in (("detect_only", False), ("closure", True)):
+        for warm in (True, False):
+            lc = closer()
+            if not groups:
+                lc.consistent_groups = []
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                _, closed = lc.on_keyframe(m_in, q)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.events()
+        dev = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+        stages = {r: stage_ops(events, r, 1) for r in LOOP_RANGES}
+        for r, v in stages.items():
+            ev = [e for e in events if e.name == r
+                  and e.device_type == DeviceType.CPU]
+            v["host_ms"] = round(sum(e.time_range.end - e.time_range.start
+                                     for e in ev) / 1e3, 3)
+        out[name] = {
+            "closed": bool(closed), "host_ms": wall_ms,
+            "device_busy_ms": busy_ms(dev),
+            "kernel_launches": len(dev),
+            "sync_like_calls": sum(1 for e in events
+                                   if e.name in SYNC_CALLS),
+            "stages": {r: v for r, v in stages.items()
+                       if v["calls_per_frame"]}}
+    print(json.dumps(out))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=24)
@@ -133,6 +211,7 @@ def main():
     ap.add_argument("--strict", action="store_true")
     ap.add_argument("--sensor", choices=("rgbd", "stereo"), default="rgbd")
     ap.add_argument("--async-mapping", action="store_true")
+    ap.add_argument("--loop", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -145,6 +224,8 @@ def main():
 
     objects = not args.objects_off
     card = card_line()
+    if args.loop:
+        return profile_loop(card)
     if args.sensor == "stereo":
         from object_slam_tpu_torch.datasets.synthetic import render_street
         cfg = SlamConfig.kitti_stereo()

@@ -20,7 +20,7 @@ to carry over.
 Usage:
   python scripts/run_kitti_torch.py --seq DIR [--gt FILE]
       [--semantic-dir DIR] [--out OUT_DIR] [--max-frames N]
-      [--sync-mapping] [--device cuda|cpu]
+      [--sync-mapping] [--loop [--vocab VOCAB.txt]] [--device cuda|cpu]
 """
 
 import argparse
@@ -45,6 +45,11 @@ def main():
     ap.add_argument("--sync-mapping", action="store_true",
                     help="run each keyframe's mapping pass inline instead "
                          "of on the mapping thread")
+    ap.add_argument("--loop", action="store_true",
+                    help="loop closing and the BoW relocalization")
+    ap.add_argument("--vocab", default=None,
+                    help="a DBoW2 text vocabulary (ORBvoc.txt format) for "
+                         "--loop; default: the package's vocab_synth.txt")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args()
@@ -64,6 +69,7 @@ def main():
 
     sys_ = SlamSystem(cfg, enable_objects=args.semantic_dir is not None,
                       async_mapping=not args.sync_mapping,
+                      enable_loop=args.loop, vocab_path=args.vocab,
                       device=args.device)
     if sys_.device.type == "cuda":
         t0 = time.perf_counter()
@@ -134,6 +140,13 @@ def main():
             tracked=tracked_mask)
         result.update({"rpe_" + k: v for k, v in rpe.items()})
     sys_.shutdown()
+    if sys_.loop_closer is not None:
+        result["loops_closed"] = sys_.loop_closer.n_loops_closed
+        result["loops_rejected"] = sys_.loop_closer.n_loops_rejected
+        result["loop_events"] = sys_.loop_closer.events
+        # keyframes with a BoW row (every keyframe gets one)
+        result["bow_rows"] = int(((m.kf_bow != 0).any(dim=1)
+                                  & m.kf_valid).sum())
     print(json.dumps(result))
 
 

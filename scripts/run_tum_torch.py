@@ -14,7 +14,7 @@ device.
 Usage:
   python scripts/run_tum_torch.py --seq DIR [--semantic-dir DIR]
       [--out OUT_DIR] [--max-frames N] [--no-objects] [--metrics PATH]
-      [--device cuda|cpu]
+      [--loop [--vocab VOCAB.txt]] [--device cuda|cpu]
 """
 
 import argparse
@@ -39,6 +39,11 @@ def main():
     ap.add_argument("--metrics", default=None,
                     help="write per-frame JSONL metrics to this path "
                          "(utils/metrics.MetricsStream)")
+    ap.add_argument("--loop", action="store_true",
+                    help="loop closing and the BoW relocalization")
+    ap.add_argument("--vocab", default=None,
+                    help="a DBoW2 text vocabulary (ORBvoc.txt format) for "
+                         "--loop; default: the package's vocab_synth.txt")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args()
@@ -61,6 +66,7 @@ def main():
         from object_slam_tpu_torch.utils.metrics import MetricsStream
         metrics = MetricsStream(args.metrics)
     sys_ = SlamSystem(cfg, enable_objects=not args.no_objects,
+                      enable_loop=args.loop, vocab_path=args.vocab,
                       device=args.device, metrics=metrics)
 
     t0 = time.perf_counter()
@@ -126,6 +132,13 @@ def main():
             e = np.array([est[a][1] for a, b in pairs])
             g = np.array([pos_gt[b] for a, b in pairs])
             result["ate_rmse"] = ate_mod.ate_rmse(e, g)
+    if sys_.loop_closer is not None:
+        result["loops_closed"] = sys_.loop_closer.n_loops_closed
+        result["loops_rejected"] = sys_.loop_closer.n_loops_rejected
+        result["loop_events"] = sys_.loop_closer.events
+        # keyframes with a BoW row (every keyframe gets one)
+        result["bow_rows"] = int(((m.kf_bow != 0).any(dim=1)
+                                  & m.kf_valid).sum())
     print(json.dumps(result))
 
 

@@ -114,11 +114,27 @@ def test_no_relocalization_needed(run):
 
 
 @pytest.mark.parametrize("kwargs,tracking", [
-    (dict(enable_objects=False, enable_loop=True), {}),
+    (dict(enable_objects=False, enable_mapping=False), {}),
 ])
 def test_options_outside_the_slice_raise(kwargs, tracking):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SlamSystem(small_cfg(**tracking), device="cpu", **kwargs)
+
+
+def test_enable_loop_builds_the_closer():
+    """Loop closing is ported: enable_loop=True builds the closer with the
+    package's 10^4-word vocabulary and a [max_keyframes, n_words] kf_bow
+    (f32, zero), without a vocab_path as with one."""
+    cfg = small_cfg()
+    sys_ = SlamSystem(cfg, enable_objects=False, enable_loop=True,
+                      device="cpu")
+    lc = sys_.loop_closer
+    assert lc is not None and lc.vocab.n_words == 10000 and lc.fix_scale
+    assert sys_.map.kf_bow.shape == (cfg.caps.max_keyframes, 10000)
+    assert sys_.map.kf_bow.dtype == torch.float32
+    assert not bool(torch.any(sys_.map.kf_bow != 0))
+    assert SlamSystem(cfg, enable_objects=False,
+                      device="cpu").map.kf_bow.shape[1] == 1
 
 
 def test_other_sensors_and_blob_entry_raise():

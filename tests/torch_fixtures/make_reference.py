@@ -42,6 +42,7 @@ the same frames.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import sys
 
@@ -529,9 +530,10 @@ def run_pipelined(cfg, scene, poses, objects, blank=None, blob=False,
             sa = None
         else:
             gray, depth, rgb, sem = scene.render_rgbd(T)
-            gray = np.asarray(gray, np.float32)
-            depth = np.asarray(depth, np.float32)
-            rgb = np.asarray(rgb, np.float32)
+            if not bench_pack:
+                gray = np.asarray(gray, np.float32)
+                depth = np.asarray(depth, np.float32)
+                rgb = np.asarray(rgb, np.float32)
             sa = (scene.sem_arrays(sem, cfg.semantic.max_instances)
                   if objects else None)
         gray_sum.append(float(np.sum(gray, dtype=np.float64)))
@@ -1064,11 +1066,662 @@ def record_kitti_objects():
           f"{os.path.getsize(OUT_KITTI_OBJECTS) / 1e3:.1f} kB", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# loop closing: the VGA circuit (its closure stage by stage, the noise
+# runs, loop off), the VGA kidnap through the BoW relocalization, and the
+# small circuit the CPU tests replay from a captured system state
+# ---------------------------------------------------------------------------
+
+OUT_LOOP_PASS_VGA = os.path.join(HERE, "loop_pass_tum_vga.npz")
+OUT_LOOP_CIRCUIT_VGA = os.path.join(HERE, "loop_circuit_tum_vga.npz")
+OUT_KIDNAP_LOOP_VGA = os.path.join(HERE, "kidnap_loop_tum_vga.npz")
+OUT_LOOP_SMALL = os.path.join(HERE, "loop_small.npz")
+# the circuit: loop_trajectory(LOOP_FRAMES, sweep=2 pi LOOP_TURNS) in
+# bench.py's room; the JAX CPU run closes exactly one loop and accepts it
+LOOP_FRAMES = 120
+LOOP_TURNS = 1.15
+LOOP_NOISE_RUNS = 5
+LOOP_PASS_TRIALS = 3
+# the small circuit (scripts/diag_loop_alias.py's positive circuit, 320x240)
+# and the frames before its closing keyframe the port replays
+LOOP_SMALL_FRAMES = 120
+LOOP_SMALL_REPLAY = 8
+
+# the index sets every jax sampler call draws, jitted or not: (k, [T, k])
+_SETS: list = []
+# Sim3 index sets handed to the sampler's next k=3 draws in place of its
+# own (a noise run with the unperturbed run's draws pinned)
+_PIN3: list = []
+
+
+def tap_sampler():
+    """Record every ransac.sample_minimal_sets draw through a debug
+    callback, so the draws inside jitted programs (relocalize_try's PnP)
+    are recorded too. Installed before anything is traced."""
+    from object_slam_tpu.solvers import ransac as jransac
+    if getattr(jransac, "_tapped", False):
+        return
+    orig = jransac.sample_minimal_sets
+
+    def sample(key, n, valid, n_trials, k):
+        idx = orig(key, n, valid, n_trials, k)
+        if k == 3 and _PIN3:
+            idx = jnp.asarray(_PIN3.pop(0))
+        jax.debug.callback(
+            lambda x, k=k: _SETS.append((k, np.asarray(x, np.int32))), idx)
+        return idx
+    jransac.sample_minimal_sets = sample
+    jransac._tapped = True
+
+
+def loop_state(lc):
+    """The closer's host state in the layout the port reads back."""
+    from object_slam_tpu_torch.interop import loop_state_to_numpy
+    return loop_state_to_numpy(lc)
+
+
+def _noisy(m, rng):
+    u = rng.uniform(-6e-8, 6e-8, m.pt_xyz.shape)
+    return m._replace(pt_xyz=jnp.asarray(
+        (np.asarray(m.pt_xyz) * (1.0 + u)).astype(np.float32)))
+
+
+def run_loop(cfg, scene, poses, objects=True, loop=True, blob=True,
+             blank=None, noise_seed=None, capture=None, on_capture=None,
+             bench_pack=False, pin=None, tag=""):
+    """One JAX run with loop closing: every frame as run_pipelined feeds it,
+    with the frames a keyframe was inserted on, every on_keyframe call
+    (keyframe, closed), the closer's events, every relocalization attempt
+    (frame, candidate, inliers), the sampler's draws (Sim3 k=3, PnP k=6).
+    noise_seed: one-ulp noise in every mapping pass's and closure's input
+    points. capture: "closure" keeps the map and closer state at the input
+    of the on_keyframe call that accepts a closure; an int keeps the whole
+    system state after that frame, and what on_capture(sys_) returns.
+    bench_pack: the blob is packed from the renderer's float64 depth and
+    rgb, as bench.py packs it (run_pipelined and the kidnap runs cast the
+    frame to float32 first, which moves ~150 depth pixels of a VGA frame
+    by one u16 step). pin: (frames, sim3 sets) of another run: its
+    keyframe decisions (every fused resolve inserts exactly on those
+    frames) and its Sim3 draws replace this run's, as the port's replay
+    does."""
+    import time
+    tap_sampler()
+    del _SETS[:]
+    del _PIN3[:]
+    sys_ = SlamSystem(cfg, enable_objects=objects, enable_loop=loop)
+    lc = sys_.loop_closer
+    rng = np.random.RandomState(noise_seed) if noise_seed is not None \
+        else None
+    if rng is not None:
+        ulp_noise(sys_, noise_seed)
+    inserts, okf, tries, reloc, staged, held = [], [], [], [], [], {}
+    cur = {"i": 0}
+    jit_insert, jit_motion = sys_._jit_insert, sys_._jit_motion
+    relocalize = sys_._relocalize
+
+    def insert(m, frame, Tcw, kp_pt, spawn, fid):
+        inserts.append(int(fid))
+        return jit_insert(m, frame, Tcw, kp_pt, spawn, fid)
+
+    def motion(*args):
+        if sys_.frame_id not in staged:
+            staged.append(sys_.frame_id)
+        return jit_motion(*args)
+
+    def reloc_fn(frame):
+        tr = relocalize(frame)
+        reloc.append((round(float(frame.timestamp) * 30), tr is not None))
+        return tr
+    sys_._jit_insert, sys_._jit_motion = insert, motion
+    sys_._relocalize = reloc_fn
+    if pin is not None:
+        pin_frames, pin_sets = set(int(f) for f in pin[0]), pin[1]
+        _PIN3.extend(np.asarray(x) for x in pin_sets)
+        resolve_one = sys_._resolve_one
+
+        def resolve(pend, latest):
+            p = np.array(np.asarray(pend["packed"]))
+            p[49], p[57] = 0.0, float(pend["fid"] in pin_frames)
+            return resolve_one(dict(pend, packed=p), latest)
+        sys_._resolve_one = resolve
+    if lc is not None:
+        on_kf, reloc_try = lc.on_keyframe, sys_._jit_reloc_try
+
+        def on_keyframe(m, kf):
+            if rng is not None:
+                m = _noisy(m, rng)
+            n_ev, state, key = len(lc.events), loop_state(lc), lc.rng
+            out = on_kf(m, kf)
+            okf.append((cur["i"], int(kf), bool(out[1])))
+            if (capture == "closure" and "m" not in held
+                    and len(lc.events) > n_ev
+                    and lc.events[-1].get("accepted")):
+                held.update(m=m, kf=int(kf), state=state, rng=key)
+            return out
+
+        def try_fn(m, frame, kf, key):
+            tr = reloc_try(m, frame, kf, key)
+            tries.append((round(float(frame.timestamp) * 30), int(kf),
+                          int(tr.n_inliers)))
+            return tr
+        lc.on_keyframe = on_keyframe
+        sys_._jit_reloc_try = try_fn
+    H, W = cfg.camera.height, cfg.camera.width
+    gray_sum, n_det = [], []
+    t0 = time.perf_counter()
+    for i, T in enumerate(poses):
+        cur["i"] = i
+        if blank is not None and blank[i]:
+            gray = depth = np.zeros((H, W), np.float32)
+            rgb = np.zeros((H, W, 3), np.float32)
+            sa = None
+        else:
+            gray, depth, rgb, sem = scene.render_rgbd(T)
+            if not bench_pack:
+                gray = np.asarray(gray, np.float32)
+                depth = np.asarray(depth, np.float32)
+                rgb = np.asarray(rgb, np.float32)
+            sa = (scene.sem_arrays(sem, cfg.semantic.max_instances)
+                  if objects else None)
+        gray_sum.append(float(np.sum(gray, dtype=np.float64)))
+        n_det.append(0 if sa is None else int(np.sum(sa[4])))
+        if blob:
+            d16 = np.clip(depth * cfg.camera.depth_map_factor, 0,
+                          65535).astype(np.uint16)
+            rgb8 = np.clip(rgb, 0, 255).astype(np.uint8)
+            b, iv = sys_.builder.pack_frame_blob(d16, rgb8, sa)
+            sys_.track_rgbd_blob(b, iv, timestamp=i / 30.0)
+        else:
+            sys_.track_rgbd(jnp.asarray(gray), jnp.asarray(depth),
+                            jnp.asarray(rgb), sa, timestamp=i / 30.0)
+        if capture == i:
+            jax.effects_barrier()
+            held.update(system_state(sys_))
+            held["sim3_sets_before"] = np.int32(
+                sum(1 for k, _ in _SETS if k == 3))
+            if on_capture is not None:
+                held.update(on_capture(sys_))
+        print(f"{tag} frame {i}: state={sys_.state} kf={sys_.last_kf_id} "
+              f"t={time.perf_counter() - t0:.1f}s", flush=True)
+    sys_.flush_mapping()
+    jax.effects_barrier()
+    seconds = time.perf_counter() - t0
+    traj = sys_.final_trajectory()
+    m = sys_.map
+    kf_valid = np.asarray(m.kf_valid)
+    sets3 = [s for k, s in _SETS if k == 3]
+    sets6 = [s for k, s in _SETS if k == 6]
+    out = {
+        "tracked": np.asarray([r.tracked for r in sys_.trajectory]),
+        "rec_tcw": np.stack([r.Tcw for r in sys_.trajectory]).astype(
+            np.float32),
+        "final_tcw": np.stack([t[1] for t in traj]).astype(np.float32),
+        "kf_frames": np.asarray(m.kf_frame_id)[kf_valid].astype(np.int32),
+        "insert_frames": np.asarray(inserts, np.int32),
+        "n_points": np.int32(int(np.sum(np.asarray(m.pt_valid)))),
+        "gray_sum": np.asarray(gray_sum),
+        "n_detections": np.asarray(n_det, np.int32),
+        "staged_frames": np.asarray(staged, np.int32),
+        "reloc_frames": np.asarray([f for f, _ in reloc], np.int32),
+        "reloc_ok": np.asarray([ok for _, ok in reloc], bool),
+        "reloc_tries": np.asarray(tries, np.int32).reshape(-1, 3),
+        "sim3_sets": (np.stack(sets3) if sets3
+                      else np.zeros((0, 256, 3), np.int32)),
+        "pnp_sets": (np.stack(sets6) if sets6
+                     else np.zeros((0, 256, 6), np.int32)),
+        "seconds": np.float64(seconds),
+    }
+    if lc is not None:
+        out.update({
+            "on_keyframe": np.asarray(okf, np.int32).reshape(-1, 3),
+            "events": np.asarray(json.dumps(lc.events)),
+            "loops_closed": np.int32(lc.n_loops_closed),
+            "loops_rejected": np.int32(lc.n_loops_rejected)})
+    if objects:
+        labels = np.asarray(m.obj_label)[np.asarray(m.obj_valid)]
+        lab, cnt = np.unique(labels, return_counts=True)
+        out.update({"census_labels": lab.astype(np.int32),
+                    "census_counts": cnt.astype(np.int32),
+                    "semantic_constraints": np.int64(
+                        sys_.objects.semantic_constraints)})
+    gt = np.stack([np.linalg.inv(T)[:3, 3] for T in poses])
+    est = np.stack([np.linalg.inv(T)[:3, 3] for T in out["final_tcw"]])
+    ok = out["tracked"]
+    out["ate"] = np.float64(ate_rmse(est[ok], gt[ok]))
+    print(f"{tag}: {int(ok.sum())}/{len(ok)} tracked, KFs inserted at "
+          f"{inserts}, staged {staged}, reloc {reloc}, tries {tries}, "
+          f"{len(sets3)} Sim3 / {len(sets6)} PnP draws, events "
+          f"{lc.events if lc is not None else None}, ATE "
+          f"{out['ate']:.6f} m, {seconds:.1f} s", flush=True)
+    return out, sys_, held
+
+
+def system_state(sys_):
+    """A JAX system's whole state after a frame (strict readback, sync
+    mapping, objects off): the map, the last frame, the tracker's counters,
+    the records so far and the closer's host state."""
+    assert sys_._fused_pending is None and sys_._async is None
+    fr = sys_.last_frame
+    st = {f"m.{k}": v for k, v in compact_map(
+        {f: np.asarray(getattr(sys_.map, f)) for f in MapState._fields},
+        {f: np.asarray(getattr(init_loop_map(sys_), f))
+         for f in MapState._fields}).items()}
+    st.update({f"last.{f}": np.asarray(getattr(fr, f)) for f in FRAME_FIELDS})
+    st.update({f"loop.{k}": v for k, v in loop_state(
+        sys_.loop_closer).items()})
+    st.update({
+        "velocity": np.asarray(sys_.velocity, np.float32),
+        "counters": np.asarray([sys_.state, sys_.last_kf_id,
+                                sys_.frames_since_kf, sys_.frame_id,
+                                getattr(sys_, "_kf_inliers", 0),
+                                getattr(sys_, "_last_n_inliers", -1)],
+                               np.int64),
+        "rec_tcw": np.stack([r.Tcw for r in sys_.trajectory]).astype(
+            np.float32),
+        "rec_ref": np.asarray([r.ref_kf for r in sys_.trajectory], np.int32),
+        "rec_tcr": np.stack([r.Tcr for r in sys_.trajectory]).astype(
+            np.float32),
+        "rec_tracked": np.asarray([r.tracked for r in sys_.trajectory])})
+    return st
+
+
+def init_loop_map(sys_):
+    from object_slam_tpu.slam.map_state import init_map
+    return init_map(sys_.cfg.caps, sys_.cfg.objects.history_capacity,
+                    n_bow_words=sys_.loop_closer.vocab.n_words)
+
+
+def loop_scene(cfg):
+    """bench.py's room (seed 3, three boxes of 0.9)."""
+    scene = SyntheticScene.make(cfg, seed=3, n_objects=3, plane_z=4.0)
+    for b in scene.boxes:
+        b["size"] = 0.9
+    return scene
+
+
+def loop_poses(frames=LOOP_FRAMES, turns=LOOP_TURNS):
+    from object_slam_tpu.datasets.synthetic import loop_trajectory
+    return np.stack(loop_trajectory(frames, sweep=2 * np.pi * turns))
+
+
+def check_one_closure(res, tag):
+    ev = json.loads(str(res["events"]))
+    acc = [e for e in ev if e.get("accepted")]
+    if len(ev) != 1 or len(acc) != 1:
+        raise SystemExit(f"{tag}: events {ev}; the circuit must close "
+                         "exactly one loop and accept it")
+
+
+def _rows(out, name, prev, cur):
+    """The rows of each field stage ``name`` changed (interop.stage_maps
+    reads them); returns the changed fields."""
+    changed = []
+    for f, v in cur.items():
+        if np.array_equal(v, prev[f]):
+            continue
+        changed.append(f)
+        if v.ndim == 0:
+            out[f"{name}.{f}"] = v
+            continue
+        idx = np.flatnonzero(np.any(
+            (v != prev[f]).reshape(v.shape[0], -1), axis=1))
+        out[f"{name}.{f}@idx"] = idx.astype(np.int32)
+        out[f"{name}.{f}@rows"] = v[idx]
+    return changed
+
+
+LOOP_STAGES = ("bow", "propagate", "fuse", "pose_graph", "gba")
+
+
+@jax.jit
+def _match_idx(m, q, l):
+    """The match index of LoopCloser._match_pairs_impl's brute match."""
+    from object_slam_tpu.features import matching as jmatch
+    P = m.pt_xyz.shape[0]
+    okq = m.kf_kp_valid[q] & (m.kf_kp_pt[q] >= 0) \
+        & m.pt_valid[jnp.clip(m.kf_kp_pt[q], 0, P - 1)]
+    okl = m.kf_kp_valid[l] & (m.kf_kp_pt[l] >= 0) \
+        & m.pt_valid[jnp.clip(m.kf_kp_pt[l], 0, P - 1)]
+    midx, _ = jmatch.brute_match(
+        m.kf_kp_desc[q], okq, m.kf_kp_desc[l], okl, th_dist=50,
+        nn_ratio=0.75, angle_a=m.kf_kp_angle[q], angle_b=m.kf_kp_angle[l])
+    return midx
+
+
+def record_loop_pass(sys_, held):
+    """The accepted closure of the circuit stage by stage: on_keyframe run
+    again on the map and closer state it had as input (the same programs
+    on the same input give the same closure), with every stage's input and
+    output kept: the BoW row and its words, the candidates, the groups,
+    the match pairs, the Sim3 draw and RANSAC winner, the Gauss-Newton
+    result, the guided count, the gate numbers and q before / after, and
+    the maps after bow, propagate, fuse, pose graph and GBA (only the rows
+    each changed). Then the GBA again LOOP_PASS_TRIALS times on its input
+    with the points scaled by (1 + u), u uniform in +-6e-8: how far the
+    reference's own GBA moves the keyframes."""
+    from object_slam_tpu.loop import loop_closing as jlc
+    lc = sys_.loop_closer
+    m_in, q = held["m"], held["kf"]
+    st = held["state"]
+    members = st["group_members"].tolist()
+    groups, at = [], 0
+    for size, cnt in zip(st["group_sizes"].tolist(),
+                         st["group_counts"].tolist()):
+        groups.append((set(members[at:at + size]), int(cnt)))
+        at += size
+    lc.consistent_groups, lc.last_loop_kf = groups, int(st["last_loop_kf"])
+    lc._cooldown, lc.rng = int(st["cooldown"]), held["rng"]
+    n_ev = len(lc.events)
+    rec = {}
+    npy = lambda jm: {f: np.asarray(getattr(jm, f)) for f in MapState._fields}  # noqa: E731
+
+    def wrap(attr, name, keep):
+        fn = getattr(lc, attr)
+
+        def run(*a):
+            r = fn(*a)
+            rec.setdefault(name, []).append(keep(a, r))
+            return r
+        setattr(lc, attr, run)
+    wrap("_jit_bow", "bow", lambda a, r: npy(r))
+    wrap("_jit_detect", "detect", lambda a, r: (np.asarray(r[0]),
+                                                np.asarray(r[1])))
+    wrap("_jit_match_pairs", "match", lambda a, r: (
+        int(a[2]), [np.asarray(x) for x in r]))
+    wrap("_jit_sim3_gn", "gn", lambda a, r: [np.asarray(x) for x in r])
+    wrap("_guided_matches", "guided", lambda a, r: int(r))
+    wrap("_jit_quality", "quality", lambda a, r: float(r))
+    wrap("_jit_propagate", "propagate", lambda a, r: (
+        npy(r[0]), np.asarray(r[1]), np.asarray(r[3])))
+    wrap("_jit_fuse", "fuse", lambda a, r: npy(r))
+    wrap("_jit_pose_graph", "pose_graph", lambda a, r: npy(r))
+    wrap("_jit_gba", "gba", lambda a, r: npy(r))
+    ransac_fn = jlc.sim3_solver.sim3_ransac
+
+    def ransac(*a, **kw):
+        r = ransac_fn(*a, **kw)
+        rec.setdefault("ransac", []).append(
+            [np.asarray(x) for x in (r.T12, r.s12, r.inliers, r.n_inliers,
+                                     r.ok)])
+        return r
+    jlc.sim3_solver.sim3_ransac = ransac
+    del _SETS[:]
+    try:
+        m_out, closed = lc.on_keyframe(m_in, q)
+    finally:
+        jlc.sim3_solver.sim3_ransac = ransac_fn
+    jax.effects_barrier()
+    if not closed:
+        raise SystemExit("loop pass: the closure did not repeat")
+    ev = lc.events[n_ev:]
+    base = npy(init_loop_map(sys_))
+    m_np = npy(m_in)
+    out = {"q": np.int32(q), "events": np.asarray(json.dumps(ev)),
+           "stages": np.asarray(LOOP_STAGES)}
+    for k, v in held["state"].items():
+        out[f"state_in.{k}"] = v
+    for k, v in loop_state(lc).items():
+        out[f"state_out.{k}"] = v
+    for f, v in compact_map(m_np, base).items():
+        out[f"in.{f}"] = v
+    word, bow = lc.vocab.transform(m_in.kf_kp_desc[q], m_in.kf_kp_valid[q])
+    out["bow_word"], out["bow_row"] = np.asarray(word), np.asarray(bow)
+    cand, W = rec["detect"][0]
+    out["cand"] = cand
+    # every Sim3 attempt of the call: its candidate, matches, draw, RANSAC
+    # and (when it got there) Gauss-Newton and guided count
+    out["attempt_l"] = np.asarray([l for l, _ in rec["match"]], np.int32)
+    for i, (l, (pc_q, pc_l, mok)) in enumerate(rec["match"]):
+        out[f"match{i}.pc_q"], out[f"match{i}.pc_l"] = pc_q, pc_l
+        out[f"match{i}.ok"] = mok
+        out[f"match{i}.idx"] = np.asarray(_match_idx(m_in, q, l))
+    sets3 = [s for k, s in _SETS if k == 3]
+    out["sim3_sets"] = (np.stack(sets3) if sets3
+                        else np.zeros((0, 256, 3), np.int32))
+    for i, r in enumerate(rec.get("ransac", [])):
+        for n, v in zip(("T12", "s12", "inliers", "n_inliers", "ok"), r):
+            out[f"ransac{i}.{n}"] = v
+    for i, r in enumerate(rec.get("gn", [])):
+        for n, v in zip(("T12", "s12", "inliers", "n_inliers"), r):
+            out[f"gn{i}.{n}"] = v
+    out["guided"] = np.asarray(rec.get("guided", []), np.int32)
+    out["quality"] = np.asarray(rec["quality"])
+    prop, T_old, s_init = rec["propagate"][0]
+    out["propagate.T_old"], out["propagate.s_init"] = T_old, s_init
+    stage_out = {"bow": rec["bow"][0], "propagate": prop,
+                 "fuse": rec["fuse"][0], "pose_graph": rec["pose_graph"][0],
+                 "gba": rec["gba"][0]}
+    prev = m_np
+    for name in LOOP_STAGES:
+        changed = _rows(out, name, prev, stage_out[name])
+        print(f"loop pass (q={q}) {name}: changed {sorted(changed)}",
+              flush=True)
+        prev = stage_out[name]
+    if not all(np.array_equal(npy(m_out)[f], prev[f])
+               for f in ("kf_pose", "pt_xyz", "kf_kp_pt")):
+        raise SystemExit("loop pass: the stages do not chain to the output")
+    # the GBA's own spread under one-ulp noise in its input points
+    pg = stage_out["pose_graph"]
+    gba_ref = stage_out["gba"]
+    kv = gba_ref["kf_valid"]
+    rng = np.random.RandomState(0)
+    moves = []
+    J = lambda d: MapState(**{f: jnp.asarray(v) for f, v in d.items()})  # noqa: E731
+    for _ in range(LOOP_PASS_TRIALS):
+        d = dict(pg)
+        d["pt_xyz"] = (pg["pt_xyz"] * (1.0 + rng.uniform(
+            -6e-8, 6e-8, pg["pt_xyz"].shape))).astype(np.float32)
+        t = npy(lc._jit_gba(J(d)))
+        moves.append(float(np.max(np.linalg.norm(
+            t["kf_pose"][kv][:, :3, 3] - gba_ref["kf_pose"][kv][:, :3, 3],
+            axis=1))))
+    out["gba_ulp_kf_move"] = np.asarray(moves)
+    out["gba_kf_move"] = np.float64(np.max(np.linalg.norm(
+        gba_ref["kf_pose"][kv][:, :3, 3] - pg["kf_pose"][kv][:, :3, 3],
+        axis=1)))
+    print(f"loop pass: events {ev}; the GBA moves the keyframes by up to "
+          f"{out['gba_kf_move'] * 1e3:.3f} mm; under one-ulp input noise it "
+          f"lands {[round(x * 1e3, 4) for x in moves]} mm from itself",
+          flush=True)
+    np.savez_compressed(OUT_LOOP_PASS_VGA, **out)
+    print(f"wrote {OUT_LOOP_PASS_VGA}: "
+          f"{os.path.getsize(OUT_LOOP_PASS_VGA) / 1e3:.1f} kB", flush=True)
+
+
+_CIRCUIT_KEEP = ("tracked", "rec_tcw", "final_tcw", "kf_frames",
+                 "insert_frames", "on_keyframe", "events", "ate")
+
+
+def record_loop_circuit(part):
+    """part "main": the circuit with loop closing (its accepted closure
+    recorded stage by stage into loop_pass_tum_vga.npz); "off": loop
+    closing off; "noise<k>": the loop-on run under one-ulp noise (seed k);
+    "pin<k>": the same with main's keyframe decisions and Sim3 draws
+    pinned. Each part writes build/loop_circuit/<part>.npz; part "merge"
+    gathers them into loop_circuit_tum_vga.npz."""
+    cfg = SlamConfig.tum_rgbd()
+    parts_dir = os.path.join(HERE, "..", "..", "build", "loop_circuit")
+    os.makedirs(parts_dir, exist_ok=True)
+    if part == "merge":
+        return merge_loop_circuit(parts_dir)
+    scene, poses = loop_scene(cfg), loop_poses()
+    if part == "main":
+        res, sys_, held = run_loop(cfg, scene, poses, capture="closure",
+                                   bench_pack=True, tag="loop circuit")
+        check_one_closure(res, "loop circuit")
+        record_loop_pass(sys_, held)
+    elif part == "off":
+        res, _, _ = run_loop(cfg, scene, poses, loop=False, bench_pack=True,
+                             tag="loop circuit, loop off")
+    elif part.startswith("pin"):
+        # one-ulp noise with the unperturbed run's keyframe decisions and
+        # Sim3 draws pinned: the condition the port's replay runs under
+        k = int(part[len("pin"):])
+        main = np.load(os.path.join(parts_dir, "main.npz"))
+        res, _, _ = run_loop(cfg, scene, poses, noise_seed=k,
+                             bench_pack=True,
+                             pin=(main["insert_frames"], main["sim3_sets"]),
+                             tag=f"loop circuit pinned ulp noise {k}")
+    else:
+        k = int(part[len("noise"):])
+        res, _, _ = run_loop(cfg, scene, poses, noise_seed=k,
+                             bench_pack=True,
+                             tag=f"loop circuit ulp noise {k}")
+    res["poses"] = poses
+    np.savez_compressed(os.path.join(parts_dir, f"{part}.npz"), **res)
+
+
+def merge_loop_circuit(parts_dir):
+    """main + off + the noise runs -> loop_circuit_tum_vga.npz. The bands
+    come from the pinned noise runs (pin<k>: the unperturbed run's
+    keyframe decisions and Sim3 draws, as the port's replay) that kept its
+    flags, keyframes and closure; the free noise runs (noise<k>) are kept
+    as the closures and ATEs the JAX package reaches on its own decisions
+    under one-ulp noise."""
+    main = dict(np.load(os.path.join(parts_dir, "main.npz")))
+    off = np.load(os.path.join(parts_dir, "off.npz"))
+    out = dict(main)
+    for f in ("ate", "tracked", "kf_frames", "insert_frames"):
+        out[f"off.{f}"] = off[f]
+
+    def closure(d):
+        return [(e["q"], e["l"], e["accepted"])
+                for e in json.loads(str(d["events"]))]
+    kept, free = 0, []
+    for k in range(LOOP_NOISE_RUNS):
+        for kind in ("pin", "noise"):
+            p = os.path.join(parts_dir, f"{kind}{k}.npz")
+            if not os.path.exists(p):
+                continue
+            n = np.load(p)
+            same = (np.array_equal(n["tracked"], main["tracked"])
+                    and np.array_equal(n["insert_frames"],
+                                       main["insert_frames"])
+                    and closure(n) == closure(main))
+            print(f"{kind} run {k}: flags, keyframes and closure "
+                  f"{'kept' if same else 'changed'}; closure "
+                  f"{closure(n)}, ATE {float(n['ate']):.6f}", flush=True)
+            if kind == "pin" and same:
+                for f in ("rec_tcw", "final_tcw", "ate"):
+                    out[f"noise.{kept}.{f}"] = n[f]
+                kept += 1
+            if kind == "noise":
+                free.append((closure(n), float(n["ate"])))
+    out["n_noise"] = np.int32(kept)
+    out["free_noise"] = np.asarray(json.dumps(free))
+    if kept < 3:
+        raise SystemExit(f"only {kept} pinned noise runs kept the "
+                         "reference's decisions")
+    np.savez_compressed(OUT_LOOP_CIRCUIT_VGA, **out)
+    print(f"wrote {OUT_LOOP_CIRCUIT_VGA}: "
+          f"{os.path.getsize(OUT_LOOP_CIRCUIT_VGA) / 1e3:.1f} kB; loop-off "
+          f"ATE {float(off['ate']):.6f} m, loop-on "
+          f"{float(main['ate']):.6f} m; free noise runs {free}", flush=True)
+
+
+def record_kidnap_loop_tum_vga():
+    """The VGA kidnap of kidnap_tum_vga with loop closing on: the LOST
+    frames relocalize through the BoW candidates, one relocalize_try each
+    (the attempts and their PnP draws recorded)."""
+    cfg = SlamConfig.tum_rgbd()
+    poses, blank = kidnap_sequence(*KIDNAP_VGA)
+    res, _, _ = run_loop(cfg, tum_vga_scene(cfg), poses, blank=blank,
+                         tag="kidnap loop vga")
+    check_kidnap(res)
+    if not len(res["reloc_tries"]):
+        raise SystemExit("kidnap loop: no BoW relocalization attempt")
+    res.update({"poses": poses, "blank": blank})
+    np.savez_compressed(OUT_KIDNAP_LOOP_VGA, **res)
+    print(f"wrote {OUT_KIDNAP_LOOP_VGA}: "
+          f"{os.path.getsize(OUT_KIDNAP_LOOP_VGA) / 1e3:.1f} kB", flush=True)
+
+
+def loop_small_cfg():
+    """scripts/diag_loop_alias.py's positive circuit geometry (the TUM
+    camera at half size, 320x240; ab_deviations.build_cfg(2)), strict
+    readback."""
+    return SlamConfig(
+        camera=CameraConfig(width=320, height=240, fx=520.9 / 2,
+                            fy=521.0 / 2, cx=325.1 / 2, cy=249.7 / 2,
+                            dist=(0, 0, 0, 0, 0), bf=20.0, th_depth=40.0,
+                            depth_map_factor=1.0),
+        orb=OrbConfig(n_features=500, n_levels=4),
+        caps=CapacityConfig(n_kp=512, max_points=16384, max_keyframes=256),
+        tracking=TrackingConfig(pipelined_readback=False))
+
+
+def record_loop_small():
+    """The small circuit (objects off, strict readback, sync): the JAX run
+    that closes one loop, with the whole system state LOOP_SMALL_REPLAY
+    frames before the frame whose keyframe closes it (the port starts
+    there), and the BoW relocalization of frame 2's view against the map
+    of that state (its attempts and their PnP draws)."""
+    cfg = loop_small_cfg()
+    scene = loop_scene(cfg)
+    poses = loop_poses(LOOP_SMALL_FRAMES)
+    res, _, _ = run_loop(cfg, scene, poses, objects=False, blob=False,
+                         tag="loop small (probe)")
+    check_one_closure(res, "loop small")
+    okf = res["on_keyframe"]
+    close_frame = int(okf[okf[:, 2] == 1][0, 0])
+    start = close_frame - LOOP_SMALL_REPLAY
+    g, d, rgb, _ = scene.render_rgbd(poses[2])
+
+    def relocalize(sys_):
+        """SlamSystem._relocalize's BoW branch on the captured system (it
+        only reads the map and draws from the system's key)."""
+        frame = sys_.builder.build_rgbd(
+            jnp.asarray(np.asarray(g, np.float32)),
+            jnp.asarray(np.asarray(d, np.float32)),
+            jnp.asarray(np.asarray(rgb, np.float32)), None, 0.0)
+        n0 = len(_SETS)
+        tries, out = [], {}
+        reloc_try = sys_._jit_reloc_try
+
+        def try_fn(m, fr, kf, key):
+            tr = reloc_try(m, fr, kf, key)
+            i = len(tries)
+            tries.append((int(kf), int(tr.n_inliers)))
+            out.update({f"reloc.try{i}.Tcw": np.asarray(tr.Tcw),
+                        f"reloc.try{i}.kp_pt": np.asarray(tr.kp_pt)})
+            return tr
+        sys_._jit_reloc_try = try_fn
+        rng = sys_.rng
+        tr = SlamSystem._relocalize(sys_, frame)
+        sys_._jit_reloc_try, sys_.rng = reloc_try, rng
+        jax.effects_barrier()
+        out.update({f"reloc.frame.{f}": np.asarray(getattr(frame, f))
+                    for f in FRAME_FIELDS})
+        out["reloc.tries"] = np.asarray(tries, np.int32).reshape(-1, 2)
+        out["reloc.sets"] = np.stack([s for k, s in _SETS[n0:] if k == 6])
+        del _SETS[n0:]
+        out["reloc.ok"] = np.bool_(tr is not None)
+        print(f"loop small: relocalization tries {tries}, accepted "
+              f"{tr is not None}", flush=True)
+        return out
+    res, sys_, held = run_loop(cfg, scene, poses, objects=False, blob=False,
+                               capture=start, on_capture=relocalize,
+                               tag="loop small")
+    out = dict(res)
+    out.update({f"state.{k}": v for k, v in held.items()
+                if not k.startswith("reloc.")})
+    out.update({k: v for k, v in held.items() if k.startswith("reloc.")})
+    out["start"] = np.int32(start)
+    out["close_frame"] = np.int32(close_frame)
+    out["poses"] = poses
+    print(f"loop small: closure frame {close_frame}, replay from {start}",
+          flush=True)
+    np.savez_compressed(OUT_LOOP_SMALL, **out)
+    print(f"wrote {OUT_LOOP_SMALL}: "
+          f"{os.path.getsize(OUT_LOOP_SMALL) / 1e3:.1f} kB", flush=True)
+
+
 def main():
     parts = sys.argv[1:] or ["slice1", "objects", "tum_vga", "pipelined",
                              "kidnap", "pipelined_tum_vga", "kidnap_tum_vga",
                              "stereo", "kitti_stereo", "kitti_pass",
-                             "kitti_objects"]
+                             "kitti_objects", "loop_small",
+                             "loop_circuit_tum_vga", "kidnap_loop_tum_vga"]
     if "slice1" in parts:
         out = {}
         record_local_ba(out)
@@ -1105,6 +1758,22 @@ def main():
         record_kitti_pass()
     if "kitti_objects" in parts:
         record_kitti_objects()
+    if "loop_small" in parts:
+        record_loop_small()
+    if "loop_pass_tum_vga" in parts:
+        record_loop_circuit("main")
+    for p in parts:
+        # loop_circuit_tum_vga: every part in turn; loop_circuit_tum_vga:
+        # <part> one of them (main, off, noise<k>, merge), for parallel runs
+        if p == "loop_circuit_tum_vga":
+            for part in (["main", "off"]
+                         + [f"{kind}{k}" for kind in ("pin", "noise")
+                            for k in range(LOOP_NOISE_RUNS)] + ["merge"]):
+                record_loop_circuit(part)
+        elif p.startswith("loop_circuit_tum_vga:"):
+            record_loop_circuit(p.split(":", 1)[1])
+    if "kidnap_loop_tum_vga" in parts:
+        record_kidnap_loop_tum_vga()
 
 
 if __name__ == "__main__":
