@@ -647,3 +647,16 @@ def render_room(cfg, poses, workers: int | None = None):
     """bench.py's room at the given poses, rendered by a pool of spawned
     processes: ([(gray, depth, rgb as float32, sem_arrays)], seconds)."""
     return _room_pool(cfg, poses, _room_render_f32, workers)
+
+
+def _room_render_stereo_u8(T):
+    gl, gr = _ROOM_WORKER["scene"].render_stereo(T)[:2]
+    return (np.clip(gl, 0, 255).astype(np.uint8),
+            np.clip(gr, 0, 255).astype(np.uint8))
+
+
+def render_room_stereo(cfg, poses, workers: int | None = None):
+    """bench.py's room at the given poses as u8 stereo pairs (the right
+    camera bf / fx along the left's x axis), rendered by a pool of spawned
+    processes: ([(gray_l, gray_r)], seconds)."""
+    return _room_pool(cfg, poses, _room_render_stereo_u8, workers)

@@ -10,8 +10,10 @@ host (``pack_frame_blob``, the reference's byte layout), moves it with one
 copy from pinned memory (``upload_blob``) and reinterprets its slices on
 the device (``_unpack_blob``). ``build_stereo`` extracts both images,
 matches them (``features/stereo.py::match_stereo``) and always builds the
-Object2D slab, as the reference's stereo build does. The mono builder
-waits for a later slice.
+Object2D slab, as the reference's stereo build does. ``build_mono``
+extracts one image and carries no depth, no virtual right coordinate and
+the empty detection slab (the reference's object pipeline needs depth,
+System.cc:334-338).
 """
 
 from __future__ import annotations
@@ -291,6 +293,16 @@ class FrameBuilder:
         # the rectified stereo datasets have no distortion, so the raw ur
         # is kept (the reference's comment at frame.py:297-298)
         return self._assemble(kp_l, uv_und, ur, depth, obj, timestamp)
+
+    def build_mono(self, gray, timestamp):
+        """gray [H, W] (u8 or float, numpy or a tensor): one extraction;
+        depth and ur are -1 everywhere and the detection slab is empty."""
+        kp = self.extractor(self._image(gray).contiguous())
+        uv_und = cam_mod.undistort_points(self.K, kp.uv)
+        none = torch.full((kp.uv.shape[0],), -1.0, dtype=torch.float32,
+                          device=self.device)
+        return self._assemble(kp, uv_und, none, none.clone(),
+                              self._empty_obj, timestamp)
 
     def _assemble(self, kp: Keypoints, uv_und, ur, depth, obj,
                   timestamp) -> FrameData:

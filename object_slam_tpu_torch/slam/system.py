@@ -1,11 +1,15 @@
-"""System facade: the per-frame orchestration loop (RGB-D and stereo).
+"""System facade: the per-frame orchestration loop (RGB-D, stereo, mono).
 
 Counterpart of object_slam_tpu/slam/system.py. ``track_rgbd`` builds the
 frame from arrays, ``track_rgbd_blob`` from one uint8 blob
 (``FrameBuilder.pack_frame_blob``), ``track_stereo`` from a rectified
-pair. The first frame with enough depth
-initializes the map (``_stereo_init_impl``, then the object update). A
-frame tracked while the state is OK runs the fused tracking chain, with
+pair, ``track_mono`` from one image. With depth, the first frame with
+enough of it initializes the map (``_stereo_init_impl``, then the object
+update). In mono, a reference frame is held until a later frame matches
+it well enough for the two-view initializer (``_mono_initialize``,
+solvers/initializer.py): the triangulated points and the two keyframes
+start the map. A frame tracked while mapping is on and the state is OK
+runs the fused tracking chain, with
 the object stages as its hooks when objects are on (``_track_fused``); its
 packed result is read back one frame late by default
 (``tracking.pipelined_readback``): a non-blocking copy into pinned memory
@@ -29,8 +33,13 @@ loop detection (``loop.loop_closing.LoopCloser.on_keyframe``) once its
 local-mapping pass is in the map: after the pass inline, or after the
 merge of its async pass, on the tracker's stream.
 
-Not in this slice, and raising ``NotImplementedError`` with the ROADMAP
-item that ports them: the mono sensor, localization mode.
+Localization mode (``enable_mapping=False``,
+``activate_localization_mode``) sends every frame down the staged path,
+where the motion model also tracks temporal VO points
+(``tracking.track_motion_model_vo``) and a frame with few map matches
+keeps the VO pose (``vo_mode``); no object update, keyframe or mapping
+merge happens while it is on. ``shutdown(checkpoint_path)`` writes the
+map and the bookkeeping after the flush (slam/checkpoint.py).
 
 State machine (Tracking.h:99-105): NOT_INITIALIZED -> OK <-> LOST.
 """
@@ -55,21 +64,17 @@ from object_slam_tpu_torch.loop import kfdb
 from object_slam_tpu_torch.loop.loop_closing import LoopCloser
 from object_slam_tpu_torch.loop.vocabulary import Vocabulary
 from object_slam_tpu_torch.ops.scatter import scatter_set, topk
-from object_slam_tpu_torch.slam import local_mapping, map_ops
+from object_slam_tpu_torch.slam import checkpoint, local_mapping, map_ops
 from object_slam_tpu_torch.slam import tracking as trk
 from object_slam_tpu_torch.slam.frame import FrameBuilder, FrameData
 from object_slam_tpu_torch.slam.map_state import MapState, init_map
 from object_slam_tpu_torch.slam.objects import ObjectEngine
 from object_slam_tpu_torch.solvers import ransac
 from object_slam_tpu_torch.solvers.epnp import pnp_ransac_sets
+from object_slam_tpu_torch.solvers.initializer import initialize_mono_sets
 
 NOT_INITIALIZED, OK, LOST = 0, 1, 2
 STATE_NAMES = {NOT_INITIALIZED: "NOT_INITIALIZED", OK: "OK", LOST: "LOST"}
-
-
-def _not_in_slice(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue 1: {item})")
 
 
 @dataclass
@@ -106,8 +111,7 @@ class _AsyncMapping:
         self.device = device
         self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
                        else None)
-        self._pool = ThreadPoolExecutor(max_workers=1,
-                                        thread_name_prefix="local-mapping")
+        self._pool = None     # the worker thread, started at dispatch
         self.pending = None   # (future, snapshot, done event or None)
         self.pending_kf = -1  # the keyframe whose pass is in flight
         self.worker_ms: List[float] = []
@@ -155,6 +159,9 @@ class _AsyncMapping:
             start.record(torch.cuda.current_stream(self.device))
             for t in m:
                 t.record_stream(self.stream)
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="local-mapping")
         fut = self._pool.submit(self._work, m, kf_id, fast, start, done)
         self.pending = (fut, m, done)
         self.pending_kf = kf_id
@@ -199,7 +206,10 @@ class _AsyncMapping:
         fut.result()
 
     def close(self):
-        self._pool.shutdown(wait=True)
+        """Stop the worker thread (a later dispatch starts a new one)."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
 
 
 class SlamSystem:
@@ -212,11 +222,6 @@ class SlamSystem:
                  device=None, profile: bool = False, metrics=None):
         self.cfg = cfg or SlamConfig()
         cfg = self.cfg
-        if not enable_mapping:
-            raise _not_in_slice("localization mode (enable_mapping=False)",
-                                "checkpoint, localization mode and reset")
-        if cfg.sensor not in ("rgbd", "stereo"):
-            raise _not_in_slice(f"sensor={cfg.sensor!r}", "mono")
         self.device = resolve_device(device)
         self.builder = FrameBuilder(cfg, device=self.device)
         self.K = self.builder.K
@@ -260,6 +265,7 @@ class SlamSystem:
         self._last_n_inliers = -1
         self._host_ts = 0.0
         self._fused_pending = None   # the lagged fused readback
+        self._mono_ref = None        # mono: the initializer's first view
         # the RANSAC sampler's stream (the reference's PRNGKey(0))
         self.rng = torch.Generator(device=self.device)
         self.rng.manual_seed(0)
@@ -347,6 +353,17 @@ class SlamSystem:
         self._host_ts = float(timestamp)
         return self._track_and_emit(frame)
 
+    def track_mono(self, gray, timestamp=0.0):
+        """gray [H, W] (u8 or float, numpy or a tensor), undistorted by the
+        camera's coefficients like the other sensors. Before the map
+        exists the frame goes to the two-view initializer."""
+        with self._span("frame_build"):
+            frame = self.builder.build_mono(gray, timestamp)
+        self._host_ts = float(timestamp)
+        if self.state == NOT_INITIALIZED:
+            return self._mono_initialize(frame)
+        return self._track_and_emit(frame)
+
     def _track_and_emit(self, frame: FrameData):
         """_track, then one metrics record of host state the loop already
         holds (no device read)."""
@@ -366,8 +383,86 @@ class SlamSystem:
         return out
 
     # ------------------------------------------------------------------
+    def _mono_skip(self, frame: FrameData, new_ref: bool):
+        """An untracked frame before the mono map exists; new_ref makes it
+        the initializer's reference view."""
+        if new_ref:
+            self._mono_ref = frame
+        self._record(frame, False)
+        self.last_frame = frame
+        self.frame_id += 1
+        return frame
+
+    def _mono_sets(self, valid, n_trials: int = 200):
+        """The initializer's [T, 8] F and [T, 4] H index sets, drawn in
+        that order from this system's generator."""
+        return (self._minimal_sets(valid, n_trials, 8),
+                self._minimal_sets(valid, n_trials, 4))
+
+    def _mono_initialize(self, frame: FrameData):
+        """Tracking::MonocularInitialization: match the reference view,
+        run the two-view initializer, and on success insert the reference
+        view at the identity with the triangulated points and this frame
+        at T21 observing them (CreateInitialMapMonocular)."""
+        cfg = self.cfg
+        ref = self._mono_ref
+        if ref is None or int(torch.sum(frame.valid)) < 100:
+            return self._mono_skip(frame, new_ref=True)
+        midx, mok = matching.brute_match(
+            ref.desc, ref.valid, frame.desc, frame.valid, th_dist=50,
+            nn_ratio=0.9, angle_a=ref.angle, angle_b=frame.angle)
+        if int(torch.sum(mok)) < cfg.tracking.min_init_matches:
+            return self._mono_skip(frame, new_ref=True)
+        N = frame.uv.shape[0]
+        mi = torch.clamp(midx, 0, N - 1).long()
+        with self._span("mono_init"):
+            init = initialize_mono_sets(
+                *self._mono_sets(mok), self.K, ref.uv, frame.uv[mi], mok,
+                min_inliers=cfg.tracking.min_init_inliers)
+            ok = bool(init.ok)
+        if not ok:
+            return self._mono_skip(frame, new_ref=False)
+        # the reference scales the map to median depth 1 with jnp.median
+        # over the depths of the good points and NaN elsewhere; the NaN
+        # propagates and nan_to_num makes the scale 1 unless every slot is
+        # good (ROADMAP.md, queue 3). torch.quantile propagates NaN too and
+        # interpolates the two middles of an even count as jnp.median does.
+        z = torch.where(init.good, init.pw[:, 2],
+                        torch.full_like(init.pw[:, 2], math.nan))
+        med = torch.clamp(torch.nan_to_num(torch.quantile(z, 0.5), nan=1.0),
+                          min=1e-6)
+        pw = init.pw / med
+        T21 = init.T21.clone()
+        T21[:3, 3] = init.T21[:3, 3] / med
+
+        # keyframe 0 at the identity with the reference view's keypoints;
+        # the triangulated points spawn through their depth in that view
+        ref2 = ref._replace(depth=torch.where(init.good, pw[:, 2],
+                                              torch.full_like(pw[:, 2], -1.0)))
+        none = torch.full((N,), -1, dtype=torch.int32, device=self.device)
+        with self._span("insert_keyframe"):
+            self.map, kf0 = self._insert_impl(
+                self.map, ref2, self._eye(), none, init.good,
+                max(self.frame_id - 1, 0))
+            # keyframe 1 observes the same points at the matched keypoints
+            kp_pt1 = scatter_set(none, mi, torch.where(
+                init.good, self.map.kf_kp_pt[int(kf0)], none[mi]))
+            self.map, kf1 = self._insert_impl(
+                self.map, frame, T21, kp_pt1,
+                torch.zeros(N, dtype=torch.bool, device=self.device),
+                self.frame_id)
+        frame = frame._replace(Tcw=T21, kp_pt=kp_pt1,
+                               pose_ok=torch.tensor(True, device=self.device))
+        self.state = OK
+        self.last_kf_id = int(kf1)
+        self.frames_since_kf = 0
+        self._record(frame, True)
+        self.last_frame = frame
+        self.frame_id += 1
+        return frame
+
     def _track(self, frame: FrameData):
-        fused = self.cfg.tracking.fused
+        fused = self.cfg.tracking.fused and self.enable_mapping
         if self.state == OK and fused:
             # dispatch BEFORE resolving the previous frame's lagged readback;
             # the state is one frame stale (a pending LOST costs one wasted
@@ -510,20 +605,32 @@ class SlamSystem:
         ref_id = max(self.last_kf_id, 0)
         with self._span("track_staged"):
             T_pred = self.velocity @ last.Tcw
+            vo_mode = False
+            if not self.enable_mapping:
+                # localization mode: temporal VO points feed the motion
+                # model where the frozen map is sparse (Tracking.cc:384-514);
+                # mbVO = few matches to map points
+                tr, n_map = trk.track_motion_model_vo(
+                    self.K, self.map, frame, last, T_pred,
+                    self.scale_factors, self.inv_sigma2)
+                nm, ni, n_map = self._counts(tr.n_matches, tr.n_inliers,
+                                             n_map)
+                vo_mode = n_map < 10
+            else:
+                def motion(radius):
+                    tr = trk.track_motion_model(
+                        self.K, self.map, frame, last.uv, last.kp_pt,
+                        last.level, last.valid, T_pred, self.scale_factors,
+                        self.inv_sigma2, radius_th=radius, T_last=last.Tcw,
+                        last_angle=last.angle)
+                    return (tr,) + tuple(self._counts(tr.n_matches,
+                                                      tr.n_inliers))
 
-            def motion(radius):
-                tr = trk.track_motion_model(
-                    self.K, self.map, frame, last.uv, last.kp_pt,
-                    last.level, last.valid, T_pred, self.scale_factors,
-                    self.inv_sigma2, radius_th=radius, T_last=last.Tcw,
-                    last_angle=last.angle)
-                return (tr,) + tuple(self._counts(tr.n_matches,
-                                                  tr.n_inliers))
-
-            tr, nm, ni = motion(cfg.tracking.motion_model_radius)
-            if nm < 20:
-                # wide-window retry (Tracking.cc:967-975 doubles th)
-                tr, nm, ni = motion(2.0 * cfg.tracking.motion_model_radius)
+                tr, nm, ni = motion(cfg.tracking.motion_model_radius)
+                if nm < 20:
+                    # wide-window retry (Tracking.cc:967-975 doubles th)
+                    tr, nm, ni = motion(
+                        2.0 * cfg.tracking.motion_model_radius)
             tr_ni = ni
             if nm < 20 or ni < 10:
                 # a thin motion-model consensus is refused before it is
@@ -551,6 +658,11 @@ class SlamSystem:
                     frame = self.objects.associate(
                         self.map, frame._replace(Tcw=tr.Tcw), last)
 
+            if vo_mode:
+                # VO survival: the frozen map has no local coverage, so the
+                # temporal-point pose is the result (Tracking.cc:445-450
+                # skips TrackLocalMap when mbOnlyTracking && mbVO)
+                return self._vo_result(frame, tr, tr_ni, last)
             if self.objects is not None and bool(torch.any(frame.obj3d >= 0)):
                 with self._span("semopt"):
                     tr2, self.map, n_sem, _ = \
@@ -580,11 +692,14 @@ class SlamSystem:
             frame = frame._replace(Tcw=tr2.Tcw, kp_pt=tr2.kp_pt,
                                    pose_ok=torch.tensor(ok,
                                                         device=self.device))
-        if self.objects is not None and ok:
+        # the map is frozen in localization mode: no object update, keyframe
+        # or mapping merge
+        if self.objects is not None and ok and self.enable_mapping:
             with self._span("object_update"):
                 self.map, frame = self.objects.update(self.map, frame)
         if ok:
             self.velocity = tr2.Tcw @ se3.inverse(last.Tcw)
+        if ok and self.enable_mapping:
             if self._async is not None and self._async.ready():
                 # adopt a finished mapping pass as soon as it lands
                 self._merge_mapping("ready")
@@ -606,6 +721,21 @@ class SlamSystem:
             else:
                 self.frames_since_kf += 1
                 self._kf_inliers = max(self._kf_inliers, n_inl)
+        self._record(frame, ok)
+        self.last_frame = frame
+        self.frame_id += 1
+        return frame
+
+    def _vo_result(self, frame, tr, n_inl, last):
+        """Localization mode's VO pose as the frame's result: tracked with
+        >= 20 inliers, no local map, no keyframe."""
+        ok = n_inl >= 20
+        self._last_n_inliers = n_inl
+        self.state = OK if ok else LOST
+        frame = frame._replace(Tcw=tr.Tcw, kp_pt=tr.kp_pt,
+                               pose_ok=torch.tensor(ok, device=self.device))
+        if ok:
+            self.velocity = tr.Tcw @ se3.inverse(last.Tcw)
         self._record(frame, ok)
         self.last_frame = frame
         self.frame_id += 1
@@ -882,6 +1012,16 @@ class SlamSystem:
             out.append((rec.timestamp, Tcr @ kf_pose[ref], rec.tracked))
         return out
 
+    def activate_localization_mode(self):
+        """Tracking only: no keyframe, point or object update from here on
+        (System::ActivateLocalizationMode, System.cc:133-150). The lagged
+        readback is resolved first, under the mode it was dispatched in."""
+        self._resolve_fused_pending()
+        self.enable_mapping = False
+
+    def deactivate_localization_mode(self):
+        self.enable_mapping = True
+
     def reset(self):
         """Clear map, trajectory and tracker state (System::Reset ->
         Tracking::Reset, Tracking.cc:1769-1815); a mapping pass in flight is
@@ -901,6 +1041,7 @@ class SlamSystem:
         self.last_kf_id = -1
         self.frames_since_kf = 0
         self.trajectory = []
+        self._mono_ref = None
         self._fused_pending = None
 
     def get_tracking_state(self) -> int:
@@ -909,10 +1050,14 @@ class SlamSystem:
         self._resolve_fused_pending()
         return self.state
 
-    def shutdown(self):
+    def shutdown(self, checkpoint_path: Optional[str] = None):
         """Flush the pending bookkeeping and the mapping pass in flight,
-        then stop the mapping thread."""
+        write the map and the bookkeeping to checkpoint_path when given
+        (slam/checkpoint.py::save_system), then stop the mapping thread (a
+        later keyframe starts it again)."""
         self.flush_mapping()
+        if checkpoint_path:
+            checkpoint.save_system(checkpoint_path, self)
         if self._async is not None:
             self._async.close()
 

@@ -3,11 +3,10 @@
 Counterpart of object_slam_tpu/slam/tracking.py: motion-model tracking,
 reference-KF tracking, local-map point selection and tracking, the fused
 per-frame chain (with the object stages as hooks) and the keyframe
-policy, and one relocalization attempt against a candidate keyframe
-(``relocalize_try``). The reference's ``lax.cond`` gates become host
-``if``s on device scalars.
-
-The localization-mode VO tracker is not in this slice (ROADMAP.md).
+policy, one relocalization attempt against a candidate keyframe
+(``relocalize_try``), and localization mode's motion tracking with
+temporal VO points (``track_motion_model_vo``). The reference's
+``lax.cond`` gates become host ``if``s on device scalars.
 """
 
 from __future__ import annotations
@@ -107,6 +106,76 @@ def track_motion_model(K, m: MapState, frame: FrameData,
                          frame.uv.device)
     return _optimize_from_matches(K, m, frame, T_pred, kp_pt,
                                   inv_sigma2_lvl, min_matches, T_alt=T_last)
+
+
+def track_motion_model_vo(K, m: MapState, frame: FrameData,
+                          last: FrameData, T_pred, scale_factors,
+                          inv_sigma2_lvl, radius_th: float = 15.0):
+    """Localization-mode motion tracking with temporal VO points
+    (Tracking.cc:384-514): every last-frame keypoint with measured depth
+    but no map point acts as a temporary 3D point, so tracking survives
+    where the frozen map has no coverage. Temporal matches enter the pose
+    solve but never gain map-point ids.
+
+    Returns (TrackResult, n_map_inliers []): the second drives the mbVO
+    state ("few matches to map points")."""
+    P = m.pt_xyz.shape[0]
+    N = frame.uv.shape[0]
+    dev = frame.uv.device
+    ptc = torch.clamp(last.kp_pt, 0, P - 1).long()
+    has_pt = last.valid & (last.kp_pt >= 0) & m.pt_valid[ptc]
+    temporal = last.valid & ~has_pt & (last.depth > 0)
+    rows_ok = has_pt | temporal
+
+    pc_last = cam_mod.backproject(K, last.uv, torch.clamp(last.depth,
+                                                          min=1e-6))
+    pw_tmp = se3.apply(se3.inverse(last.Tcw), pc_last[None])[0]
+    pw = torch.where(has_pt[:, None], m.pt_xyz[ptc], pw_tmp)
+    desc = torch.where(has_pt[:, None], m.pt_desc[ptc], last.desc)
+
+    pc = se3.apply(T_pred, pw[None])[0]
+    uv = cam_mod.project(K, pc)
+    rows_ok = rows_ok & (pc[:, 2] > 0) & cam_mod.in_image(K, uv)
+    lvl = torch.clamp(last.level, 0, scale_factors.shape[0] - 1)
+    radius = radius_th * scale_factors[lvl.long()]
+    ur_pred = uv[:, 0] - K.bf / torch.clamp(pc[:, 2], min=1e-6)
+
+    lvl_lo, lvl_hi = _motion_level_bounds(K, T_pred, last.Tcw, lvl,
+                                          scale_factors.shape[0])
+    midx, mok = matching.search_by_projection(
+        uv, last.level, desc, rows_ok,
+        frame.uv, frame.level, frame.desc, frame.valid,
+        radius_per_row=radius, th_dist=100, nn_ratio=None,
+        kp_ur=frame.ur, proj_ur=ur_pred, r_ur=radius,
+        lvl_lo=lvl_lo, lvl_hi=lvl_hi,
+        angle_a=last.angle, angle_b=frame.angle)
+
+    tgt = torch.clamp(midx, 0, N - 1).long()
+    kp_pw = torch.zeros((N, 3), dtype=pw.dtype, device=dev)
+    kp_pw = scatter_set(kp_pw, tgt, torch.where(mok[:, None], pw,
+                                                kp_pw[tgt]))
+    kp_obs = scatter_or(torch.zeros(N, dtype=torch.bool, device=dev), tgt,
+                        mok)
+    kp_pt = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    kp_pt = scatter_set(kp_pt, tgt, torch.where(mok & has_pt, last.kp_pt,
+                                                kp_pt[tgt]))
+
+    matched = kp_obs & frame.valid
+    obs = PoseObs(
+        uv=frame.uv,
+        ur=torch.where(matched, frame.ur, torch.full_like(frame.ur, -1.0)),
+        pw=kp_pw,
+        inv_sigma2=inv_sigma2_lvl[torch.clamp(
+            frame.level, 0, inv_sigma2_lvl.shape[0] - 1).long()],
+        valid=matched)
+    Tcw, inlier, n_inl = pose_optimize_best(
+        K, torch.stack([T_pred, last.Tcw]), obs)
+    kp_pt_out = torch.where(inlier, kp_pt, torch.full_like(kp_pt, -1))
+    n_map_inl = torch.sum((kp_pt_out >= 0).to(torch.int32))
+    res = TrackResult(Tcw=Tcw, kp_pt=kp_pt_out, inlier=inlier,
+                      n_matches=torch.sum(matched.to(torch.int32)),
+                      n_inliers=n_inl.to(torch.int32), kp_pt_all=kp_pt)
+    return res, n_map_inl
 
 
 def _optimize_from_matches(K, m, frame, T0, kp_pt, inv_sigma2_lvl,

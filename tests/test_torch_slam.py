@@ -117,8 +117,12 @@ def test_no_relocalization_needed(run):
     (dict(enable_objects=False, enable_mapping=False), {}),
 ])
 def test_options_outside_the_slice_raise(kwargs, tracking):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SlamSystem(small_cfg(**tracking), device="cpu", **kwargs)
+    """No option is outside the port any more: enable_mapping=False, the
+    last one that raised NotImplementedError, builds a system in
+    localization mode (slice 7; tests/test_torch_localization.py runs
+    it)."""
+    sys_ = SlamSystem(small_cfg(**tracking), device="cpu", **kwargs)
+    assert sys_.enable_mapping is False and sys_.objects is None
 
 
 def test_enable_loop_builds_the_closer():
@@ -138,11 +142,13 @@ def test_enable_loop_builds_the_closer():
 
 
 def test_other_sensors_and_blob_entry_raise():
-    """The mono sensor is not ported; the blob entry refuses a blob whose
-    size is not the geometry's layout."""
-    with pytest.raises(NotImplementedError, match="mono"):
-        SlamSystem(small_cfg().replace(sensor="mono"),
-                   enable_objects=False, device="cpu")
+    """The mono sensor is ported (slice 7: a mono system holds its first
+    frame as the initializer's reference view); the blob entry refuses a
+    blob whose size is not the geometry's layout."""
+    mono = SlamSystem(small_cfg().replace(sensor="mono"),
+                      enable_objects=False, device="cpu")
+    f = mono.track_mono(np.zeros((120, 160), np.float32), timestamp=0.0)
+    assert not bool(f.pose_ok) and mono._mono_ref is not None
     sys_ = SlamSystem(small_cfg(), enable_objects=False, device="cpu")
     with pytest.raises(ValueError, match="bytes"):
         sys_.track_rgbd_blob(np.zeros(8, np.uint8), None)

@@ -27,12 +27,27 @@ inputs and outputs are recorded here once and committed:
 * ``kitti_stereo.npz``: the same at SlamConfig.kitti_stereo() on the first
   24 frames of scripts/make_synth_kitti.py's drive, inline and async
   mapping, for ``chip_smoke.py``.
+* ``mono_small.npz`` and ``mono_euroc.npz``: track_mono on
+  tests/test_mono.py's 160x120 scene (8 frames) and on bench.py's room at
+  the EuRoC camera (40 frames, for ``chip_smoke.py``), with every RANSAC
+  draw, the initializer's inputs and winning trials; the same run with
+  only the winning sets ("pinned", as the port's replay runs), 8 / 3 runs
+  pinned with one-ulp noise in the initializer's pixels and every mapping
+  pass's input (the reference's own spread), and, for EuRoC, the runs
+  from PRNGKey(1-3) (the spread over draws);
+* ``localization_small.npz``: tests/test_slam.py's 18-frame switch into
+  localization mode, with one VO motion call's inputs and outputs;
+  ``localization_tum_vga.npz``: chip_smoke.py's localization run (30
+  frames map, 14 in the mode panning past the map and back, 8 map again);
+* ``euroc_driver.npz``: scripts/run_euroc.py's stereo loop, through the
+  library, on chip_smoke.py's 10-frame EuRoC directory.
 
 Run from the repository root (all parts, or the ones named):
 
     python tests/torch_fixtures/make_reference.py [slice1] [objects]
         [tum_vga] [pipelined] [kidnap] [pipelined_tum_vga] [kidnap_tum_vga]
-        [stereo] [kitti_stereo]
+        [stereo] [kitti_stereo] [mono_small] [mono_euroc]
+        [localization_small] [localization_tum_vga] [euroc_driver]
 
 slice1, objects and tum_vga use ``pipelined_readback=False``. The rendered
 inputs' checksums are stored so that the tests can prove they re-render
@@ -1716,12 +1731,491 @@ def record_loop_small():
           f"{os.path.getsize(OUT_LOOP_SMALL) / 1e3:.1f} kB", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# mono (the two-view initializer), localization mode, the EuRoC driver
+# ---------------------------------------------------------------------------
+
+OUT_MONO_SMALL = os.path.join(HERE, "mono_small.npz")
+OUT_MONO_EUROC = os.path.join(HERE, "mono_euroc.npz")
+OUT_LOC_SMALL = os.path.join(HERE, "localization_small.npz")
+OUT_LOC_VGA = os.path.join(HERE, "localization_tum_vga.npz")
+OUT_EUROC_DRIVER = os.path.join(HERE, "euroc_driver.npz")
+MONO_SMALL_FRAMES = 8
+MONO_EUROC_FRAMES = 40
+MONO_EUROC_STEP = 0.03
+MONO_NOISE_RUNS = 3
+LOC_SMALL_FRAMES = 18
+LOC_SMALL_SWITCH = 9
+# localization at TUM VGA: frames that map, frames in localization mode (a
+# pan past the mapped region), frames after deactivation
+LOC_VGA = (30, 14, 8)
+LOC_VGA_YAW = 0.09             # rad per frame of the pan
+LOC_VGA_OUT = 8                # frames of the pan away
+EUROC_DRIVER_FRAMES = 10
+EUROC_DRIVER_STEP = 0.03
+
+
+def mono_small_cfg():
+    """tests/test_mono.py's 160x120 mono system."""
+    return SlamConfig(
+        camera=CameraConfig(width=160, height=120, fx=130.0, fy=130.0,
+                            cx=80.0, cy=60.0, dist=(0, 0, 0, 0, 0),
+                            bf=13.0, th_depth=40.0, depth_map_factor=1.0),
+        orb=OrbConfig(n_features=300, n_levels=4),
+        caps=CapacityConfig(n_kp=384, max_points=8192, max_keyframes=64),
+        sensor="mono",
+        tracking=TrackingConfig(min_init_matches=40, min_init_inliers=25))
+
+
+def mono_small_scene(cfg):
+    """tests/test_mono.py's scene: boxes at spread depths."""
+    scene = SyntheticScene.make(cfg, seed=5, n_objects=3, plane_z=7.0)
+    rngs = np.random.RandomState(9)
+    for b in scene.boxes:
+        b['size'] = 1.2
+        b['center'] = np.array([rngs.uniform(-1.5, 1.5),
+                                rngs.uniform(-1.0, 1.0),
+                                rngs.uniform(2.5, 5.0)])
+    return scene
+
+
+def euroc_cfg(sensor):
+    """scripts/run_euroc.py's configuration (the camera block of the
+    settings YAML equals SlamConfig.euroc_stereo()'s)."""
+    return SlamConfig.euroc_stereo().replace(sensor=sensor)
+
+
+def sim3_ate(est, gt):
+    """RMSE after the least-squares similarity alignment of est onto gt
+    (Umeyama), [N, 3] each: the ATE of a trajectory whose scale is free."""
+    est = np.asarray(est, np.float64)
+    gt = np.asarray(gt, np.float64)
+    me, mg = est.mean(0), gt.mean(0)
+    e, g = est - me, gt - mg
+    U, S, Vt = np.linalg.svd(g.T @ e / len(est))
+    D = np.eye(3)
+    D[2, 2] = np.sign(np.linalg.det(U @ Vt))
+    R = U @ D @ Vt
+    s = np.trace(np.diag(S) @ D) / max(np.mean(np.sum(e * e, 1)), 1e-30)
+    aligned = s * e @ R.T + mg
+    return float(np.sqrt(np.mean(np.sum((aligned - gt) ** 2, 1))))
+
+
+def split_sets(sets):
+    """The sampler's draws in order -> {"sets_k": k per draw, "sets<k>":
+    the draws of size k stacked}."""
+    out = {"sets_k": np.asarray([s.shape[1] for s in sets], np.int32)}
+    for k in (4, 6, 8):
+        got = [s for s in sets if s.shape[1] == k]
+        out[f"sets{k}"] = (np.stack(got) if got
+                           else np.zeros((0, 0, k), np.int32))
+    return out
+
+
+def init_winners(uv1, uv2, valid, idxF, idxH, sigma=1.0):
+    """The trials initialize_mono's argmaxes pick among the index sets
+    (its F and H scores, recomputed by the same JAX functions)."""
+    from object_slam_tpu.solvers import initializer as jinit
+    from object_slam_tpu.solvers import ransac as jransac
+    uv1, uv2, valid = (jnp.asarray(x) for x in (uv1, uv2, valid))
+    F = jransac.eight_point_fundamental(uv1[idxF], uv2[idxF])
+    dF = jransac.sampson_epipolar_chi2(F, uv1, uv2)
+    thF = 3.841 * sigma * sigma * 2
+    sF = jnp.sum(jnp.where((dF < thF) & valid[None], thF - dF, 0.0), axis=1)
+    H = jinit.homography_4pt(uv1[idxH], uv2[idxH])
+    dH = jinit.homography_transfer_chi2(H, uv1, uv2)
+    thH = 5.991 * sigma * sigma * 2
+    sH = jnp.sum(jnp.where((dH < thH) & valid[None], thH - dH, 0.0), axis=1)
+    return int(jnp.argmax(sF)), int(jnp.argmax(sH))
+
+
+def run_mono(cfg, scene, poses, fps, tag, noise_seed=None, keep_init=True,
+             pins=None, rng_seed=None):
+    """One JAX mono run (objects off, the default fused pipelined path,
+    track_mono of the f32 gray render) with every RANSAC draw and every
+    initializer attempt recorded (its winning F and H trials too); flush
+    at the end. With noise_seed, one-ulp noise in every mapping pass's
+    input points and in every initializer attempt's matched pixels; with
+    pins (a list of (F set, H set) per attempt), the attempts draw those
+    sets instead of their own; with rng_seed, the system's sampler starts
+    from PRNGKey(rng_seed) instead of PRNGKey(0)."""
+    import time
+    from object_slam_tpu.solvers import initializer as jinit
+    from object_slam_tpu.solvers import ransac as jransac
+    sys_ = SlamSystem(cfg, enable_objects=False)
+    if rng_seed is not None:
+        sys_.rng = jax.random.PRNGKey(rng_seed)
+    rng = None
+    if noise_seed is not None:
+        ulp_noise(sys_, noise_seed)
+        rng = np.random.RandomState(1000 + noise_seed)
+    rec = Recorder(sys_)
+    attempts = []
+    orig_init = jinit.initialize_mono
+    pins = list(pins or [])
+
+    def init_rec(key, K, uv1, uv2, valid, **kw):
+        if rng is not None:
+            uv1, uv2 = (jnp.asarray((np.asarray(u) * (1.0 + rng.uniform(
+                -6e-8, 6e-8, u.shape))).astype(np.float32))
+                for u in (uv1, uv2))
+        n0 = len(rec.sets)
+        sample = jransac.sample_minimal_sets
+        if pins:
+            it = iter(pins.pop(0))
+            jransac.sample_minimal_sets = \
+                lambda *a, **k: jnp.asarray(next(it))
+        try:
+            res = orig_init(key, K, uv1, uv2, valid, **kw)
+        finally:
+            jransac.sample_minimal_sets = sample
+        a = {"frame": sys_.frame_id, "uv1": np.asarray(uv1),
+             "uv2": np.asarray(uv2), "valid": np.asarray(valid),
+             "ok": bool(res.ok), "T21": np.asarray(res.T21),
+             "good": np.asarray(res.good), "pw": np.asarray(res.pw)}
+        if len(rec.sets) >= n0 + 2:
+            a["idxF"], a["idxH"] = rec.sets[n0], rec.sets[n0 + 1]
+            a["bestF"], a["bestH"] = init_winners(
+                uv1, uv2, valid, a["idxF"], a["idxH"])
+        attempts.append(a)
+        return res
+    jinit.initialize_mono = init_rec
+    gray_sum = []
+    t0 = time.perf_counter()
+    try:
+        for i, T in enumerate(poses):
+            gray = np.asarray(scene.render_rgbd(T)[0], np.float32)
+            gray_sum.append(float(np.sum(gray, dtype=np.float64)))
+            sys_.track_mono(jnp.asarray(gray), timestamp=i / fps)
+            print(f"{tag} frame {i}: state={sys_.state} "
+                  f"kf={sys_.last_kf_id} t={time.perf_counter() - t0:.1f}s",
+                  flush=True)
+        sys_.flush_mapping()
+    finally:
+        jinit.initialize_mono = orig_init
+        rec.close()
+    seconds = time.perf_counter() - t0
+    traj = sys_.final_trajectory()
+    m = sys_.map
+    kf_valid = np.asarray(m.kf_valid)
+    out = {
+        "tracked": np.asarray([r.tracked for r in sys_.trajectory]),
+        "rec_tcw": np.stack([r.Tcw for r in sys_.trajectory]).astype(
+            np.float32),
+        "rec_ref": np.asarray([r.ref_kf for r in sys_.trajectory], np.int32),
+        "final_tcw": np.stack([t[1] for t in traj]).astype(np.float32),
+        "kf_frames": np.asarray(m.kf_frame_id)[kf_valid].astype(np.int32),
+        "n_points": np.int32(int(np.sum(np.asarray(m.pt_valid)))),
+        "gray_sum": np.asarray(gray_sum),
+        "staged_frames": np.asarray(rec.staged, np.int32),
+        "reloc_frames": np.asarray([round(t * fps) for t, _ in rec.reloc],
+                                   np.int32),
+        "attempt_frames": np.asarray([a["frame"] for a in attempts],
+                                     np.int32),
+        "attempt_ok": np.asarray([a["ok"] for a in attempts], bool),
+        "attempt_T21": np.asarray([a["T21"] for a in attempts], np.float32
+                                  ).reshape(-1, 4, 4),
+        "seconds": np.float64(seconds),
+    }
+    if all("bestF" in a for a in attempts):
+        out["attempt_bestF"] = np.asarray([a["bestF"] for a in attempts],
+                                          np.int32)
+        out["attempt_bestH"] = np.asarray([a["bestH"] for a in attempts],
+                                          np.int32)
+    out.update(split_sets(rec.sets))
+    ok = out["tracked"]
+    out["init_frame"] = np.int32(int(np.argmax(ok)) if ok.any() else -1)
+    wins = [a for a in attempts if a["ok"]]
+    if keep_init and wins:
+        out.update({f"init.{k}": np.asarray(v) for k, v in wins[0].items()})
+    gt = np.stack([np.linalg.inv(T)[:3, 3] for T in poses])
+    est = np.stack([np.linalg.inv(T)[:3, 3] for T in out["final_tcw"]])
+    out["ate_sim3"] = np.float64(sim3_ate(est[ok], gt[ok]) if ok.sum() > 2
+                                 else np.nan)
+    print(f"{tag}: {int(ok.sum())}/{len(ok)} tracked from frame "
+          f"{out['init_frame']}, attempts {out['attempt_frames']} ok "
+          f"{out['attempt_ok']} winners {out.get('attempt_bestF')} "
+          f"{out.get('attempt_bestH')}, KFs at {out['kf_frames']}, staged "
+          f"{rec.staged}, reloc {rec.reloc}, {out['n_points']} points, "
+          f"Sim(3) ATE {out['ate_sim3']:.6f}, {seconds:.1f} s", flush=True)
+    return out
+
+
+MONO_RUNS = {
+    # kind: (fixture, frames, orbit step, the configuration, the scene,
+    # noise runs)
+    "small": (OUT_MONO_SMALL, MONO_SMALL_FRAMES, 0.06,
+              lambda: mono_small_cfg(), mono_small_scene, 8),
+    "euroc": (OUT_MONO_EUROC, MONO_EUROC_FRAMES, MONO_EUROC_STEP,
+              lambda: euroc_cfg("mono"), tum_vga_scene, MONO_NOISE_RUNS),
+}
+
+
+def record_mono(kind, part):
+    """A mono drive the port is held to: "small" is test_mono.py's 160x120
+    run (orbit_poses(8, step=0.06)) for the CPU tests, "euroc" bench.py's
+    room at the EuRoC camera (orbit_poses(MONO_EUROC_FRAMES,
+    step=MONO_EUROC_STEP)) for chip_smoke.py; track_mono of the f32 gray
+    render. part "main" (with the initializer's inputs and winning
+    trials), "pinned" (each initializer attempt handed only the main run's
+    winning sets, as the port's replay hands them), "noise<k>" (pinned,
+    plus one-ulp noise in the initializer's matched pixels and in every
+    mapping pass's input: the reference's own sensitivity, which moves
+    the drive's keyframe decisions), "seed<k>" (the sampler started from
+    PRNGKey(k): the spread of the outcome over draws, which the port's own
+    sampler is held to), or "merge"; each part writes
+    build/mono_<kind>/<part>.npz."""
+    out_path, n_frames, step, make_cfg, make_scene, n_noise = MONO_RUNS[kind]
+    parts_dir = os.path.join(HERE, "..", "..", "build", f"mono_{kind}")
+    os.makedirs(parts_dir, exist_ok=True)
+    if part == "merge":
+        out = dict(np.load(os.path.join(parts_dir, "main.npz")))
+        for run in ["pinned"] + [f"noise{k}" for k in range(n_noise)]:
+            n = np.load(os.path.join(parts_dir, f"{run}.npz"))
+            for key in ("tracked", "rec_tcw", "kf_frames", "ate_sim3",
+                        "init_frame", "init.T21", "init.good", "n_points"):
+                out[f"{run}.{key}"] = n[key]
+        k = 1
+        while os.path.exists(os.path.join(parts_dir, f"seed{k}.npz")):
+            n = np.load(os.path.join(parts_dir, f"seed{k}.npz"))
+            for key in ("tracked", "kf_frames", "ate_sim3", "init_frame"):
+                out[f"seed{k}.{key}"] = n[key]
+            k += 1
+        np.savez_compressed(out_path, **out)
+        print(f"wrote {out_path}: {os.path.getsize(out_path) / 1e3:.1f} kB",
+              flush=True)
+        return
+    cfg = make_cfg()
+    noise, pins, seed = None, None, None
+    if part.startswith("seed"):
+        seed = int(part[len("seed"):])
+    elif part != "main":
+        # the main run's draws reduced to its winning trials, as the
+        # port's replay hands them
+        if part != "pinned":
+            noise = int(part[len("noise"):])
+        main = np.load(os.path.join(parts_dir, "main.npz"))
+        pins = [(main["sets8"][a][bF:bF + 1], main["sets4"][a][bH:bH + 1])
+                for a, (bF, bH) in enumerate(zip(main["attempt_bestF"],
+                                                 main["attempt_bestH"]))]
+    fps = 30.0 if kind == "small" else cfg.camera.fps
+    res = run_mono(cfg, make_scene(cfg), orbit_poses(n_frames, step=step),
+                   fps, f"mono {kind} {part}", noise_seed=noise,
+                   keep_init=True, pins=pins, rng_seed=seed)
+    np.savez_compressed(os.path.join(parts_dir, f"{part}.npz"), **res)
+
+
+def loc_vga_poses():
+    """LOC_VGA[0] frames of bench.py's orbit; then, still sliding along it,
+    the camera pans LOC_VGA_YAW rad per frame away from the mapped region
+    for LOC_VGA_OUT frames and back at the same rate until it looks along
+    the orbit again, for the rest of the frames."""
+    n_map, n_loc, n_after = LOC_VGA
+    poses = []
+    for i in range(n_map + n_loc + n_after):
+        j = max(0, i - n_map + 1)
+        off = LOC_VGA_YAW * max(0, min(j, LOC_VGA_OUT)
+                                - max(0, j - LOC_VGA_OUT))
+        yaw = 0.01 * i + off
+        T = np.eye(4, dtype=np.float32)
+        T[:3, 3] = [-(i * 0.01), 0.02 * np.sin(i * 0.3), 0.0]
+        c, s = np.cos(yaw), np.sin(yaw)
+        T[:3, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+        poses.append(T)
+    return poses
+
+
+def run_localization(cfg, scene, poses, on, off, objects, blob, fps, tag,
+                     capture_vo=None):
+    """One JAX run that maps, activates localization mode before frame
+    ``on`` and deactivates it before frame ``off`` (None: never). Records
+    each VO motion call's map-match and inlier counts, and the map's
+    keyframe and point counts at each switch; with capture_vo, the inputs and outputs
+    of the VO motion call of that frame."""
+    import time
+    sys_ = SlamSystem(cfg, enable_objects=objects)
+    rec = Recorder(sys_)
+    vo, held = [], {}
+    motion_vo = sys_._jit_motion_vo
+
+    def vo_rec(m, frame, last, T_pred):
+        tr, n_map = motion_vo(m, frame, last, T_pred)
+        vo.append((sys_.frame_id, int(n_map), int(tr.n_inliers)))
+        if capture_vo == sys_.frame_id:
+            held.update({"vo.T_pred": np.asarray(T_pred),
+                         "vo.Tcw": np.asarray(tr.Tcw),
+                         "vo.kp_pt": np.asarray(tr.kp_pt),
+                         "vo.inlier": np.asarray(tr.inlier),
+                         "vo.n_matches": np.int32(tr.n_matches),
+                         "vo.n_inliers": np.int32(tr.n_inliers),
+                         "vo.n_map": np.int32(n_map)})
+            put_map(held, "vo.m", m)
+            put_frame(held, "vo.frame", frame)
+            put_frame(held, "vo.last", last)
+        return tr, n_map
+    sys_._jit_motion_vo = vo_rec
+    counts = {}
+    gray_sum = []
+    t0 = time.perf_counter()
+    for i, T in enumerate(poses):
+        if i == on:
+            sys_.activate_localization_mode()
+            counts["on"] = (sys_.n_keyframes, sys_.n_points)
+        if i == off:
+            counts["off"] = (sys_.n_keyframes, sys_.n_points)
+            sys_.deactivate_localization_mode()
+        gray, depth, rgb, sem = scene.render_rgbd(T)
+        gray_sum.append(float(np.sum(gray, dtype=np.float64)))
+        sa = scene.sem_arrays(sem, cfg.semantic.max_instances) \
+            if objects else None
+        if blob:
+            d16 = np.clip(depth * cfg.camera.depth_map_factor, 0,
+                          65535).astype(np.uint16)
+            rgb8 = np.clip(rgb, 0, 255).astype(np.uint8)
+            b, iv = sys_.builder.pack_frame_blob(d16, rgb8, sa)
+            sys_.track_rgbd_blob(b, iv, timestamp=i / fps)
+        else:
+            sys_.track_rgbd(jnp.asarray(np.asarray(gray, np.float32)),
+                            jnp.asarray(np.asarray(depth, np.float32)),
+                            jnp.asarray(np.asarray(rgb, np.float32)), sa,
+                            timestamp=i / fps)
+        print(f"{tag} frame {i}: state={sys_.state} mapping="
+              f"{sys_.enable_mapping} vo={vo[-1:]} "
+              f"t={time.perf_counter() - t0:.1f}s", flush=True)
+    sys_.flush_mapping()
+    rec.close()
+    traj = sys_.final_trajectory()
+    m = sys_.map
+    kf_valid = np.asarray(m.kf_valid)
+    out = {
+        "tracked": np.asarray([r.tracked for r in sys_.trajectory]),
+        "rec_tcw": np.stack([r.Tcw for r in sys_.trajectory]).astype(
+            np.float32),
+        "final_tcw": np.stack([t[1] for t in traj]).astype(np.float32),
+        "kf_frames": np.asarray(m.kf_frame_id)[kf_valid].astype(np.int32),
+        "n_points": np.int32(int(np.sum(np.asarray(m.pt_valid)))),
+        "gray_sum": np.asarray(gray_sum),
+        "staged_frames": np.asarray(rec.staged, np.int32),
+        "vo_frames": np.asarray([v[0] for v in vo], np.int32),
+        "vo_n_map": np.asarray([v[1] for v in vo], np.int32),
+        "vo_n_inliers": np.asarray([v[2] for v in vo], np.int32),
+        "switch": np.asarray([on, -1 if off is None else off], np.int32),
+        "seconds": np.float64(time.perf_counter() - t0),
+    }
+    for k, (nk, npt) in counts.items():
+        out[f"n_kf_{k}"] = np.int32(nk)
+        out[f"n_points_{k}"] = np.int32(npt)
+    if objects:
+        labels = np.asarray(m.obj_label)[np.asarray(m.obj_valid)]
+        lab, cnt = np.unique(labels, return_counts=True)
+        out.update({"census_labels": lab.astype(np.int32),
+                    "census_counts": cnt.astype(np.int32),
+                    "semantic_constraints": np.int64(
+                        sys_.objects.semantic_constraints)})
+    out.update(held)
+    vo_mode = [v[0] for v in vo if v[1] < 10]
+    print(f"{tag}: {int(out['tracked'].sum())}/{len(poses)} tracked, KFs "
+          f"at {out['kf_frames']}, counts at the switches {counts}, VO "
+          f"calls {len(vo)}, vo_mode frames {vo_mode}, staged "
+          f"{len(rec.staged)} frames, {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def record_localization_small():
+    """tests/test_slam.py's mid-sequence switch (18 frames, activation
+    before frame 9, objects off, the default pipelined readback), with one
+    VO motion call's inputs and outputs."""
+    cfg = small_cfg().replace(tracking=TrackingConfig())
+    scene = SyntheticScene.make(cfg, seed=1, n_objects=0)
+    out = run_localization(cfg, scene, orbit_poses(LOC_SMALL_FRAMES,
+                                                   step=0.015),
+                           LOC_SMALL_SWITCH, None, False, False, 30.0,
+                           "localization small",
+                           capture_vo=LOC_SMALL_SWITCH + 3)
+    np.savez_compressed(OUT_LOC_SMALL, **out)
+    print(f"wrote {OUT_LOC_SMALL}: "
+          f"{os.path.getsize(OUT_LOC_SMALL) / 1e3:.1f} kB", flush=True)
+
+
+def record_localization_tum_vga():
+    """chip_smoke.py's localization run: SlamConfig.tum_rgbd(), objects on,
+    blobs, pipelined; LOC_VGA[0] frames map, then localization mode over a
+    pan past the mapped region, then mapping again."""
+    cfg = SlamConfig.tum_rgbd()
+    n_map, n_loc, _ = LOC_VGA
+    out = run_localization(cfg, tum_vga_scene(cfg), loc_vga_poses(), n_map,
+                           n_map + n_loc, True, True, 30.0,
+                           "localization vga")
+    np.savez_compressed(OUT_LOC_VGA, **out)
+    print(f"wrote {OUT_LOC_VGA}: {os.path.getsize(OUT_LOC_VGA) / 1e3:.1f} kB",
+          flush=True)
+
+
+def euroc_driver_frames():
+    """The EuRoC driver phase's frames: bench.py's room at the EuRoC
+    camera, EUROC_DRIVER_FRAMES stereo pairs of orbit_poses(step=
+    EUROC_DRIVER_STEP) as u8 images."""
+    cfg = euroc_cfg("stereo")
+    scene = tum_vga_scene(cfg)
+    poses = orbit_poses(EUROC_DRIVER_FRAMES, step=EUROC_DRIVER_STEP)
+    frames = []
+    for T in poses:
+        gl, gr = scene.render_stereo(T)[:2]
+        frames.append((np.clip(np.asarray(gl), 0, 255).astype(np.uint8),
+                       np.clip(np.asarray(gr), 0, 255).astype(np.uint8)))
+    return cfg, poses, frames
+
+
+def record_euroc_driver():
+    """scripts/run_euroc.py's stereo loop on the driver phase's frames, run
+    through the library (the reference driver decodes with the native
+    loader): each u8 pair as f32, rectified by the settings YAML that
+    chip_smoke.py writes (zero distortion, identity R), rgb the left image
+    three times, the mav0 timestamps."""
+    import time
+    from object_slam_tpu.datasets import euroc as jeuroc
+    cfg, poses, frames = euroc_driver_frames()
+    cam = cfg.camera
+    Km = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1.0]])
+    side = jeuroc.SideCalib(K=Km, D=np.zeros(5), R=np.eye(3), P=Km,
+                            width=cam.width, height=cam.height)
+    rect = jeuroc.Rectifier(jeuroc.EurocCalib(left=side, right=side))
+    t0_ns = 1403636579763555584
+    stamps = [t0_ns + int(round(i * 1e9 / cam.fps))
+              for i in range(len(frames))]
+    sys_ = SlamSystem(cfg, enable_objects=False)
+    t0 = time.perf_counter()
+    for i, ((gl, gr), ns) in enumerate(zip(frames, stamps)):
+        gl, gr = rect(gl.astype(np.float32), gr.astype(np.float32))
+        sys_.track_stereo(jnp.asarray(gl), jnp.asarray(gr),
+                          jnp.asarray(np.stack([gl] * 3, -1)), None,
+                          timestamp=float(ns) * 1e-9)
+        print(f"euroc driver frame {i}: state={sys_.state} "
+              f"t={time.perf_counter() - t0:.1f}s", flush=True)
+    traj = sys_.final_trajectory()
+    out = {
+        "tracked": np.asarray([ok for _, _, ok in traj]),
+        "final_tcw": np.stack([T for _, T, _ in traj]).astype(np.float32),
+        "n_keyframes": np.int32(sys_.n_keyframes),
+        "n_points": np.int32(sys_.n_points),
+        "gray_sum": np.asarray([float(np.sum(gl, dtype=np.float64))
+                                for gl, _ in frames]),
+        "stamps": np.asarray(stamps, np.int64),
+    }
+    np.savez_compressed(OUT_EUROC_DRIVER, **out)
+    print(f"euroc driver: {int(out['tracked'].sum())}/{len(frames)} tracked, "
+          f"{out['n_keyframes']} KFs, {out['n_points']} points; wrote "
+          f"{OUT_EUROC_DRIVER}", flush=True)
+
+
 def main():
     parts = sys.argv[1:] or ["slice1", "objects", "tum_vga", "pipelined",
                              "kidnap", "pipelined_tum_vga", "kidnap_tum_vga",
                              "stereo", "kitti_stereo", "kitti_pass",
                              "kitti_objects", "loop_small",
-                             "loop_circuit_tum_vga", "kidnap_loop_tum_vga"]
+                             "loop_circuit_tum_vga", "kidnap_loop_tum_vga",
+                             "mono_small", "mono_euroc", "localization_small",
+                             "localization_tum_vga", "euroc_driver"]
     if "slice1" in parts:
         out = {}
         record_local_ba(out)
@@ -1774,6 +2268,24 @@ def main():
             record_loop_circuit(p.split(":", 1)[1])
     if "kidnap_loop_tum_vga" in parts:
         record_kidnap_loop_tum_vga()
+    for p in parts:
+        # mono_small / mono_euroc: every part in turn; mono_<kind>:<part>
+        # one of them (main, pinned, noise<k>, merge), for parallel runs
+        for kind in MONO_RUNS:
+            if p == f"mono_{kind}":
+                for part in (["main", "pinned"]
+                             + [f"noise{k}" for k in range(MONO_RUNS[kind][5])]
+                             + [f"seed{k}" for k in range(1, 4)]
+                             + ["merge"]):
+                    record_mono(kind, part)
+            elif p.startswith(f"mono_{kind}:"):
+                record_mono(kind, p.split(":", 1)[1])
+    if "localization_small" in parts:
+        record_localization_small()
+    if "localization_tum_vga" in parts:
+        record_localization_tum_vga()
+    if "euroc_driver" in parts:
+        record_euroc_driver()
 
 
 if __name__ == "__main__":
