@@ -16,7 +16,8 @@ Phases, each fatal on failure:
      main path since orb_describe took its place) and orb_describe (one
      launch for the frame);
   3. strict readback, objects off: SlamSystem.track_rgbd on 40 rendered
-     TUM-VGA frames (pipelined_readback=False) on the card, with every
+     TUM-VGA frames (pipelined_readback=False) on the card, its
+     StageProfiler report printed (as in 4), with every
      kernel's launch count set to 0 before that run and read after it:
      orb_describe once per frame, extract_patches never (the same holds,
      counted the same way, for every run below);
@@ -45,7 +46,14 @@ Phases, each fatal on failure:
      cost of one relocalization call and the syncs inside eigh / svd;
   7. scripts/run_tum_torch.py on a 12-frame TUM-format directory with
      masks that this script writes under build/ (the port's zlib PNG
-     writer): the three output files and the JSON summary;
+     writer), decoding through the native prefetcher
+     (object_slam_tpu_torch/native, built here with g++): the three
+     output files and the JSON summary; then that directory decoded by
+     the prefetcher at the driver's settings, every array equal to the
+     port's PNG reader's byte for byte; then with --viz-dir (strict
+     readback): an overlay PNG per frame, the scrubber and map pages;
+     then graft_entry.entry() on the card and dryrun_multichip(card
+     count), one sharded GBA step over spawned NCCL ranks;
   7b. loop closing at full width (SlamSystem(SlamConfig.tum_rgbd(),
      enable_objects=True, enable_loop=True), the 10^4-word vocabulary):
      the JAX circuit's accepted closure stage by stage from the JAX state
@@ -123,7 +131,18 @@ Phases, each fatal on failure:
      algorithms) bit-identical to a flush-only run, and the file equal to
      the map field for field; scripts/run_euroc_torch.py stereo (held to
      the JAX run of the same decoded frames, euroc_driver.npz) and --mono
-     on a 10-frame mav0 directory written under build/;
+     on a 10-frame mav0 directory written under build/, each through the
+     prefetcher, and that directory's arrays held to the PNG reader's;
+     the sharded GBA (phase_sharded_ba) on the loop pass's GBA input at
+     full caps: one process, run_sharded_global_ba over NCCL at the card
+     count (one card: bit-identical), over 2 gloo ranks spawned on one
+     card (held to the loop pass's GBA band and to the one-process result
+     within tests/test_torch_parallel.py's tolerance), and with a rank
+     that keeps its own per-point sums (must fail); batched tracking
+     (phase_batched) of 4 sequences at TUM-VGA width, each element held to
+     the single-sequence calls, two maps swapped (must fail), 4
+     orb_describe per step; then 8 and 9 (the KITTI directory's arrays
+     held to the PNG reader's too);
  11. one JSON line of the kernels (launches from the main path of 5,
      host-in-the-loop, and per phase; orb_describe's row also carries its
      KITTI-shape and EuRoC-shape numbers), the phase seconds, the card
@@ -533,6 +552,7 @@ def run_path(cfg, poses, frames, sems, card, objects: bool):
     from object_slam_tpu_torch.slam.system import SlamSystem
 
     name = "objects on" if objects else "objects off"
+    # profile: the stage profiler, under the reference's span names
     sys_ = SlamSystem(cfg, enable_objects=objects, device="cuda",
                       profile=True)
     zero_counts()
@@ -554,8 +574,8 @@ def run_path(cfg, poses, frames, sems, card, objects: bool):
     ate = ate_rmse(np.array(est), np.array(gt))
     steady = np.asarray(times[WARMUP:])
     n_kf, n_pts = sys_.n_keyframes, sys_.n_points
-    stage = {k: float(np.mean(v[1:] if len(v) > 1 else v))
-             for k, v in sys_.stage_ms.items()}
+    stage = {k: float(np.mean(v[1:] if len(v) > 1 else v)) * 1e3
+             for k, v in sys_.profiler.samples.items()}
     print(f"{name} [{card}]: {sum(oks)}/{len(oks)} tracked, {n_kf} KFs, "
           f"{n_pts} points, ATE {ate:.6f} m, median "
           f"{np.median(steady):.3f} ms/frame, mean {np.mean(steady):.3f} "
@@ -566,6 +586,8 @@ def run_path(cfg, poses, frames, sems, card, objects: bool):
         {k: round(v, 3) for k, v in stage.items()}), flush=True)
     print(f"{name} frame ms: " + json.dumps([round(t, 3) for t in times]),
           flush=True)
+    print(f"{name} StageProfiler report [{card}] (each span synchronizes "
+          f"the card at both ends):\n{sys_.profiler.report()}", flush=True)
     if not all(oks):
         fail(f"{name}: untracked frames "
              f"{[i for i, o in enumerate(oks) if not o]}")
@@ -977,13 +999,16 @@ def reloc_cost(sys_, blob_iv, card, reps: int = 10):
 
 
 def phase_tum(cfg, poses, frames, sems, card, n_frames: int = TUM_FRAMES,
-              loop: bool = False):
+              loop: bool = False, extra=(), out: str = "out",
+              write: bool = True):
     """scripts/run_tum_torch.py, in this process, on a TUM-format
     directory of the first n_frames frames with their masks (written under
-    build/), the counts set to 0 just before and read just after. Checks
-    the three output files and the JSON summary; with loop,
-    run_tum_torch.py runs with --loop: every keyframe gets a BoW row and
-    no loop closes on these 12 frames of an orbit."""
+    build/ unless write is False), the counts set to 0 just before and
+    read just after. Checks the three output files and the JSON summary;
+    with loop, run_tum_torch.py runs with --loop: every keyframe gets a
+    BoW row and no loop closes on these 12 frames of an orbit. extra: more
+    driver arguments; out: the output directory's name. Returns the
+    launches."""
     import contextlib
     import io
     import runpy
@@ -992,18 +1017,19 @@ def phase_tum(cfg, poses, frames, sems, card, n_frames: int = TUM_FRAMES,
 
     root = os.path.dirname(os.path.abspath(__file__))
     seq = os.path.join(root, "build", "tum_smoke", "seq")
-    res_dir = os.path.join(root, "build", "tum_smoke", "out")
-    shutil.rmtree(os.path.dirname(seq), ignore_errors=True)
+    res_dir = os.path.join(root, "build", "tum_smoke", out)
     t0 = time.perf_counter()
-    write_sequence(seq, poses[:n_frames],
-                   [(d, rgb, sems[i]) for i, (_, d, rgb)
-                    in enumerate(frames[:n_frames])],
-                   cfg.camera.depth_map_factor)
+    if write:
+        shutil.rmtree(os.path.dirname(seq), ignore_errors=True)
+        write_sequence(seq, poses[:n_frames],
+                       [(d, rgb, sems[i]) for i, (_, d, rgb)
+                        in enumerate(frames[:n_frames])],
+                       cfg.camera.depth_map_factor)
     write_s = time.perf_counter() - t0
     argv = sys.argv
     sys.argv = ["run_tum_torch.py", "--seq", seq, "--semantic-dir",
                 os.path.join(seq, "semantic"), "--out", res_dir] + (
-                    ["--loop"] if loop else [])
+                    ["--loop"] if loop else []) + list(extra)
     buf = io.StringIO()
     zero_counts()
     t0 = time.perf_counter()
@@ -1014,7 +1040,8 @@ def phase_tum(cfg, poses, frames, sems, card, n_frames: int = TUM_FRAMES,
     finally:
         sys.argv = argv
     run_s = time.perf_counter() - t0
-    name = "TUM driver --loop" if loop else "TUM driver"
+    name = " ".join(["TUM driver"] + (["--loop"] if loop else [])
+                    + list(extra))
     launches = read_counts(name, n_frames)
     lines = buf.getvalue().strip().splitlines()
     try:
@@ -1042,6 +1069,66 @@ def phase_tum(cfg, poses, frames, sems, card, n_frames: int = TUM_FRAMES,
                      and res.get("loop_events") == []):
         fail(f"TUM driver --loop: summary {res}")
     return launches
+
+
+def hold_prefetch_decode(name, jobs, card, capacity):
+    """The drivers' native prefetcher at their settings (4 worker threads,
+    capacity images ahead, every job submitted up front under its index
+    and taken in order) on a directory's files: each decoded array must
+    equal the port's PNG reader's (datasets/png.py::read_png) byte for
+    byte, dtype and shape too. jobs: [(image path, depth path or None)]."""
+    from object_slam_tpu_torch.datasets.png import read_png
+    from object_slam_tpu_torch.native.loader import FramePrefetcher
+    t0 = time.perf_counter()
+    pf = FramePrefetcher(n_workers=4, capacity=capacity)
+    try:
+        for i, (img, depth) in enumerate(jobs):
+            pf.submit(i, img, depth)
+        got = [pf.get(i) for i in range(len(jobs))]
+    finally:
+        pf.close()
+    ms = (time.perf_counter() - t0) * 1e3
+    for i, ((img, depth), (a, d, _)) in enumerate(zip(jobs, got)):
+        pairs = [(img, a)] + ([(depth, d)] if depth else [])
+        for path, arr in pairs:
+            ref = read_png(path)
+            if not (arr.dtype == ref.dtype and np.array_equal(arr, ref)):
+                fail(f"{name}: the prefetcher's {os.path.basename(path)} "
+                     f"({arr.dtype} {arr.shape}) differs from read_png's "
+                     f"({ref.dtype} {ref.shape})")
+    print(f"{name} prefetcher [{card}]: {len(jobs)} jobs decoded in "
+          f"{ms:.1f} ms, every array equal to read_png's byte for byte",
+          flush=True)
+
+
+def phase_prefetch_driver(cfg, poses, frames, sems, card):
+    """The TUM driver phase's directory (the driver decodes through the
+    native prefetcher) decoded by the prefetcher at the driver's settings
+    and held to the port's PNG reader, array by array; then
+    run_tum_torch.py with --viz-dir: an overlay PNG per frame, the
+    scrubber page and the map page. Returns the --viz-dir run's
+    launches."""
+    from object_slam_tpu_torch.datasets import tum
+    root = os.path.dirname(os.path.abspath(__file__))
+    seq = os.path.join(root, "build", "tum_smoke", "seq")
+    hold_prefetch_decode("TUM driver", [
+        (fr.rgb_path, fr.depth_path) for fr in tum.load_sequence(seq)],
+        card, capacity=8)
+    viz = os.path.join(root, "build", "tum_smoke", "viz")
+    viz_launches = phase_tum(cfg, poses, frames, sems, card,
+                                extra=["--viz-dir", viz], out="out_viz",
+                                write=False)
+    want = [f"frame_{i:05d}.png" for i in range(TUM_FRAMES)] + [
+        "index.html", "map.html"]
+    files = sorted(os.listdir(viz))
+    if files != want:
+        fail(f"TUM driver --viz-dir wrote {files}")
+    page = open(os.path.join(viz, "index.html")).read()
+    if f"({TUM_FRAMES} frames)" not in page:
+        fail("TUM driver --viz-dir: the scrubber page lacks its frames")
+    print(f"TUM driver --viz-dir [{card}]: wrote {len(files)} files",
+          flush=True)
+    return viz_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1460,6 +1547,19 @@ def phase_kitti_driver(poses, frames, card,
     if not res.get("ate_rmse", 1.0) < 0.05:
         fail(f"KITTI driver: ATE {res.get('ate_rmse')}")
     return launches
+
+
+def phase_kitti_prefetch(card):
+    """The KITTI driver phase's directory decoded by the native prefetcher
+    at run_kitti_torch.py's settings (left image under 2i, right under
+    2i + 1), held to the port's PNG reader array by array."""
+    from object_slam_tpu_torch.datasets import kitti
+    root = os.path.dirname(os.path.abspath(__file__))
+    seq = os.path.join(root, "build", "kitti_smoke", "seq")
+    jobs = []
+    for fr in kitti.load_sequence(seq):
+        jobs += [(fr.left_path, None), (fr.right_path, None)]
+    hold_prefetch_decode("KITTI driver", jobs, card, capacity=6)
 
 
 # ---------------------------------------------------------------------------
@@ -2802,9 +2902,12 @@ def phase_euroc_driver(card):
     FRAMES-frame mav0 directory written under build/ (bench.py's room at
     the EuRoC camera, u8 stereo pairs, orbit_poses(step=EUROC_DRIVER_STEP),
     the ground-truth csv, a settings YAML with zero distortion and identity
-    R), stereo then --mono, the counts set to 0 before and read after each
-    (two orb_describe per stereo frame, one per mono frame). The stereo
-    run's trajectory is held to the JAX package's CPU run of the same
+    R), stereo then --mono, each decoding through the driver's native
+    prefetcher, the counts set to 0 before and read after each (two
+    orb_describe per stereo frame, one per mono frame); then the
+    directory decoded by the prefetcher at the driver's settings, held to
+    the port's PNG reader array by array. The stereo run's trajectory is
+    held to the JAX package's CPU run of the same
     decoded frames (euroc_driver.npz): flags, keyframe count, poses within
     2 mm / 0.1 deg. Both: the output file and the JSON summary."""
     import contextlib
@@ -2899,7 +3002,339 @@ def phase_euroc_driver(card):
             print(msg, flush=True)
         out["euroc_driver_mono" if mono else "euroc_driver_stereo"] = \
             launches
+    hold_prefetch_decode("EuRoC driver", [
+        (p, None) for fr in euroc.load_sequence_mav(mav)
+        for p in (fr.left_path, fr.right_path)], card, capacity=6)
     return out
+
+
+# ---------------------------------------------------------------------------
+# multi-process GBA, batched tracking, the prefetching drivers, the entry
+# ---------------------------------------------------------------------------
+
+# the sharded GBA against the single-process one: the CPU test's tolerance
+# (tests/test_torch_parallel.py), beside the loop pass's GBA band
+SHARD_POSE_TOL, SHARD_POINT_TOL = 1e-4, 1e-3
+SHARD_TIMEOUT_S = 300
+# batched tracking: B sequences of bench.py's room, each warmed through
+# track_rgbd, then BATCH_STEPS steps
+BATCH_B = 4
+BATCH_OFFSETS = (0, 2, 4, 6)
+BATCH_WARM = 8
+BATCH_STEPS = 4
+# the port's tracking tests' tolerance on poses
+TRACK_ATOL, TRACK_RTOL = 1e-5, 1e-4
+
+
+def gba_input():
+    """The loop pass's GBA input (loop_pass_tum_vga.npz: the map after the
+    JAX pose graph, at full caps) as the closer builds it, the JAX GBA's
+    output map, and its one-ulp keyframe spread."""
+    from object_slam_tpu_torch import interop
+    from object_slam_tpu_torch.config import SlamConfig
+    from object_slam_tpu_torch.geometry.camera import Intrinsics
+    from object_slam_tpu_torch.loop.loop_closing import LoopCloser
+    from object_slam_tpu_torch.slam.map_state import init_map
+    fx = np.load(LOOP_PASS_REF)
+    cfg = SlamConfig.tum_rgbd()
+    K = Intrinsics.from_config(cfg.camera)
+    lc = LoopCloser(cfg, K, device="cuda")
+    base = interop.map_state_to_numpy(init_map(
+        cfg.caps, cfg.objects.history_capacity,
+        n_bow_words=lc.vocab.n_words, device="cpu"))
+    states = interop.stage_maps(fx, base, ("bow", "propagate", "fuse",
+                                           "pose_graph", "gba"))
+    m = interop.map_state_from_numpy(states["pose_graph"], device="cuda")
+    return (K, lc.ba_problem(m), m.kf_kp_pt.shape[1],
+            cfg.solver.global_ba_iters, states["gba"],
+            np.asarray(fx["gba_ulp_kf_move"]))
+
+
+def phase_sharded_ba(card):
+    """The loop pass's GBA (512 keyframes x 1024 slots = 524,288
+    observation slots) in one process; run_sharded_global_ba over NCCL at
+    the card count (one rank: in this process, bit-identical to the
+    single-process run; more: spawned ranks, one card each); over 2 gloo
+    ranks spawned on cuda:0 (NCCL refuses two ranks on one card), held to
+    the loop pass's GBA band (LOOP_NOISE_MARGIN times the JAX GBA's
+    one-ulp spread) and to the single-process result within the CPU
+    test's tolerance; then the same with rank 1 keeping its own
+    per-point partial sums (tests/torch_fixtures/faults.py), which must
+    fail. Prints ms per GBA of each run (the gloo all-reduce of CUDA
+    tensors goes through the host)."""
+    import torch
+    import torch.distributed as dist
+    from object_slam_tpu_torch import interop
+    from object_slam_tpu_torch.parallel import distributed, sharded_ba
+    from object_slam_tpu_torch.solvers.ba import global_ba
+    sys.path.insert(0, FIXTURES)
+    import faults
+
+    K, prob, block_n, iters, gba_ref, ulp = gba_input()
+    kv = gba_ref["kf_valid"]
+    limit = LOOP_NOISE_MARGIN * float(np.max(ulp))
+
+    def kf_move(kf_pose):
+        return float(np.max(np.linalg.norm(
+            kf_pose[kv][:, :3, 3] - gba_ref["kf_pose"][kv][:, :3, 3],
+            axis=1)))
+
+    def timed_gba(fn, reps=2):
+        ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kf, pt = fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return kf.cpu().numpy(), pt.cpu().numpy(), ms
+
+    bad, readings = [], {}
+    kf0, pt0, ms0 = timed_gba(lambda: global_ba(K, prob, iters,
+                                                block_n=block_n))
+    readings["single_kf_move"] = kf_move(kf0)
+    if readings["single_kf_move"] > limit:
+        bad.append(f"single-process GBA {readings['single_kf_move']} m "
+                   f"from the JAX GBA's (limit {limit})")
+    arrays = interop.ba_problem_to_numpy(prob)
+    world = torch.cuda.device_count()
+    if world == 1:
+        store = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "nccl_store")
+        if os.path.exists(store):
+            os.remove(store)
+        distributed.maybe_initialize_distributed(
+            "file://" + store, 1, 0, device="cuda",
+            timeout_s=SHARD_TIMEOUT_S)
+        try:
+            if dist.get_backend() != "nccl":
+                fail(f"sharded BA: backend {dist.get_backend()}, not nccl")
+            kf1, pt1, ms1 = timed_gba(lambda: sharded_ba.run_sharded_global_ba(
+                K, prob, iters, block_n=block_n))
+        finally:
+            dist.destroy_process_group()
+        if not (np.array_equal(kf1, kf0) and np.array_equal(pt1, pt0)):
+            bad.append("NCCL world size 1 is not bit-identical to the "
+                       "single-process GBA")
+        readings["nccl_bit_identical"] = bool(
+            np.array_equal(kf1, kf0) and np.array_equal(pt1, pt0))
+    else:
+        outs = sharded_ba.spawn_sharded_global_ba(
+            K, arrays, world, block_n=block_n, n_iters=iters, device="cuda",
+            reps=2, timeout_s=SHARD_TIMEOUT_S)
+        kf1, pt1, ms1 = outs[0]["kf_pose"], outs[0]["pt_xyz"], \
+            outs[0]["ms"].tolist()
+        readings["nccl_kf_move"] = kf_move(kf1)
+        if readings["nccl_kf_move"] > limit:
+            bad.append(f"NCCL x{world}: {readings['nccl_kf_move']} m")
+
+    def gloo_checks(outs, tag):
+        out = []
+        for r, o in enumerate(outs[1:], 1):
+            if not (np.array_equal(o["kf_pose"], outs[0]["kf_pose"])
+                    and np.array_equal(o["pt_xyz"], outs[0]["pt_xyz"])):
+                out.append(f"{tag}: rank {r} differs from rank 0")
+        kf, pt = outs[0]["kf_pose"], outs[0]["pt_xyz"]
+        move = kf_move(kf)
+        e_kf = float(np.abs(kf - kf0).max())
+        e_pt = float(np.abs(pt - pt0).max())
+        readings[tag] = {"kf_move": move, "pose_vs_single": e_kf,
+                         "point_vs_single": e_pt}
+        if move > limit:
+            out.append(f"{tag}: keyframes {move} m from the JAX GBA's "
+                       f"(limit {limit})")
+        if e_kf > SHARD_POSE_TOL or e_pt > SHARD_POINT_TOL:
+            out.append(f"{tag}: {e_kf} / {e_pt} from the single-process "
+                       f"GBA (limits {SHARD_POSE_TOL} / {SHARD_POINT_TOL})")
+        return out
+
+    outs = sharded_ba.spawn_sharded_global_ba(
+        K, arrays, 2, block_n=block_n, n_iters=iters, device="cuda:0",
+        backend="gloo", reps=2, timeout_s=SHARD_TIMEOUT_S)
+    bad += gloo_checks(outs, "gloo x2")
+    ms2 = outs[0]["ms"].tolist()
+    readings["gloo x2 live observations per rank"] = [int(o["live"])
+                                                      for o in outs]
+    if min(readings["gloo x2 live observations per rank"]) == 0:
+        bad.append("gloo x2: a rank holds no live observation")
+    try:
+        fouts = sharded_ba.spawn_sharded_global_ba(
+            K, arrays, 2, block_n=block_n, n_iters=iters, device="cuda:0",
+            backend="gloo", timeout_s=SHARD_TIMEOUT_S,
+            setup=faults.skip_point_reduce)
+        caught = gloo_checks(fouts, "fault: rank 1 without the point "
+                                    "all-reduce")
+    except Exception as e:                  # a rank raised: caught too
+        caught = [f"the faulted run raised {type(e).__name__}: {e}"]
+    print(f"sharded GBA [{card}]: {int(kv.sum())} keyframes, "
+          f"{int(arrays['obs_valid'].sum())} live of {arrays['obs_kf'].size}"
+          f" observation slots; ms per GBA (warm-up, timed): one process "
+          f"{json.dumps([round(x, 3) for x in ms0])}, NCCL x{world} "
+          f"{json.dumps([round(x, 3) for x in ms1])}, gloo x2 on one card "
+          f"(its all-reduce through the host) "
+          f"{json.dumps([round(x, 3) for x in ms2])}; readings "
+          f"{json.dumps(readings)}; GBA limit {limit * 1e3:.4f} mm; the "
+          f"planted fault failed {caught}", flush=True)
+    if bad:
+        fail("sharded GBA: " + "; ".join(bad))
+    if not caught:
+        fail("sharded GBA: a rank without the point all-reduce passed")
+    return {"single_ms": ms0[-1], "nccl_ms": ms1[-1], "gloo2_ms": ms2[-1]}
+
+
+def phase_batched(card, frames):
+    """BatchedTracker at full width (SlamConfig.tum_rgbd(): 640x480, n_kp
+    1024, 32,768 points, 512 keyframes per element), B = BATCH_B: each
+    sequence is bench.py's room from its own offset of the orbit
+    (BATCH_OFFSETS), warmed through SlamSystem.track_rgbd (strict, objects
+    off) for BATCH_WARM frames; then BATCH_STEPS steps on frames built by
+    FrameBuilder.build_rgbd, the counts set to 0 before and read after
+    (B orb_describe per step). Each element is held to the port's
+    single-sequence track_motion_model -> track_local_map on the same
+    inputs (kp_pt and n_inliers exact, Tcw within TRACK_ATOL /
+    TRACK_RTOL); then one step with two elements' maps swapped, which must
+    fail. Returns the launches and ms per step at B = 1 and B."""
+    import torch
+    from object_slam_tpu_torch.geometry import se3
+    from object_slam_tpu_torch.parallel.batched_tracking import (
+        BatchedTracker, stack_pytrees)
+    from object_slam_tpu_torch.slam import tracking as trk
+    from object_slam_tpu_torch.slam.frame import FrameBuilder
+    from object_slam_tpu_torch.slam.system import SlamSystem
+
+    cfg = tum_cfg()
+    need = max(BATCH_OFFSETS) + BATCH_WARM + BATCH_STEPS
+    if len(frames) < need:
+        fail(f"batched: {len(frames)} frames rendered, {need} needed")
+    systems = []
+    for off in BATCH_OFFSETS:
+        s = SlamSystem(cfg, enable_objects=False, device="cuda")
+        for i in range(off, off + BATCH_WARM):
+            gray, depth, rgb = frames[i]
+            s.track_rgbd(gray, depth, rgb, None, timestamp=i / 30.0)
+        if not all(r.tracked for r in s.trajectory):
+            fail(f"batched: the sequence from frame {off} lost tracking "
+                 f"while warming")
+        systems.append(s)
+    s0 = systems[0]
+    builder = FrameBuilder(cfg, device="cuda")
+    bt = BatchedTracker(s0.K, s0.scale_factors, s0.inv_sigma2, s0.log_scale)
+    lasts = [s.last_frame for s in systems]
+    vels = [s.velocity for s in systems]
+    # each element's own map, carried by its own single-sequence calls
+    ref_maps = [s.map for s in systems]
+    maps = stack_pytrees(ref_maps)
+
+    def reference(m, frame, last, T_pred):
+        tr = trk.track_motion_model(
+            s0.K, m, frame, last.uv, last.kp_pt, last.level, last.valid,
+            T_pred, s0.scale_factors, s0.inv_sigma2, radius_th=15.0)
+        res, m2, _ = trk.track_local_map(s0.K, m, frame, tr,
+                                         s0.scale_factors, s0.inv_sigma2,
+                                         s0.log_scale)
+        return res, m2
+
+    def held(res, b, ref):
+        return (torch.equal(res.kp_pt[b], ref.kp_pt)
+                and int(res.n_inliers[b]) == int(ref.n_inliers)
+                and torch.allclose(res.Tcw[b], ref.Tcw, atol=TRACK_ATOL,
+                                   rtol=TRACK_RTOL))
+
+    def pick(x, b):
+        """Element b of the batch, keeping its axis (B = 1)."""
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*[None if v is None else pick(v, b) for v in x])
+        return x[b:b + 1]
+
+    bad, ms_b, ms_1, inliers, caught = [], [], [], [], []
+    zero_counts()
+    for step in range(BATCH_STEPS):
+        fr = []
+        for off in BATCH_OFFSETS:
+            i = off + BATCH_WARM + step
+            gray, depth, rgb = frames[i]
+            fr.append(builder.build_rgbd(gray, depth, rgb, None, i / 30.0))
+        T_pred = [v @ l.Tcw for v, l in zip(vels, lasts)]
+        a = (stack_pytrees(fr), torch.stack([l.uv for l in lasts]),
+             torch.stack([l.kp_pt for l in lasts]),
+             torch.stack([l.level for l in lasts]),
+             torch.stack([l.valid for l in lasts]), torch.stack(T_pred))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, maps2 = bt.step(maps, *a)
+        torch.cuda.synchronize()
+        ms_b.append((time.perf_counter() - t0) * 1e3)
+        for b in range(BATCH_B):        # each element alone, B = 1
+            one = [pick(x, b) for x in (maps,) + a]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bt.step(*one)
+            torch.cuda.synchronize()
+            ms_1.append((time.perf_counter() - t0) * 1e3)
+        refs = [reference(ref_maps[b], fr[b], lasts[b], T_pred[b])
+                for b in range(BATCH_B)]
+        for b, (ref, m2) in enumerate(refs):
+            if not (held(res, b, ref)
+                    and torch.equal(maps2.pt_visible[b], m2.pt_visible)
+                    and torch.equal(maps2.pt_found[b], m2.pt_found)):
+                bad.append(f"step {step}, element {b}: kp_pt equal "
+                           f"{torch.equal(res.kp_pt[b], ref.kp_pt)}, "
+                           f"inliers {int(res.n_inliers[b])} against "
+                           f"{int(ref.n_inliers)}")
+        inliers.append(res.n_inliers.tolist())
+        if step == 0:
+            order = torch.tensor([1, 0] + list(range(2, BATCH_B)),
+                                 device="cuda")
+            fres, _ = bt.step(type(maps)(*[v[order] for v in maps]), *a)
+            caught = [b for b in range(BATCH_B)
+                      if not held(fres, b, refs[b][0])]
+        for b in range(BATCH_B):
+            vels[b] = res.Tcw[b] @ se3.inverse(lasts[b].Tcw)
+            lasts[b] = fr[b]._replace(Tcw=res.Tcw[b], kp_pt=res.kp_pt[b])
+            ref_maps[b] = refs[b][1]
+        maps = maps2
+    # the single-element steps and the planted fault launch no kernel: the
+    # frames are built once per step
+    launches = read_counts("batched", BATCH_STEPS, per_frame=BATCH_B)
+    print(f"batched tracking [{card}]: B={BATCH_B} sequences from frames "
+          f"{list(BATCH_OFFSETS)} warmed {BATCH_WARM} frames, {BATCH_STEPS} "
+          f"steps; inliers {inliers}; ms per step (tracking, frames built) "
+          f"B={BATCH_B} {json.dumps([round(x, 3) for x in ms_b])}, B=1 "
+          f"(each element alone, step by step) "
+          f"{json.dumps([round(x, 3) for x in ms_1])}; B={BATCH_B} against "
+          f"the sum of its elements' B=1 steps {sum(ms_b) / sum(ms_1):.3f}; "
+          f"maps swapped failed "
+          f"elements {caught}; launches {launches}", flush=True)
+    if bad:
+        fail("batched: " + "; ".join(bad))
+    if not caught:
+        fail("batched: swapped maps passed the check")
+    if min(min(x) for x in inliers) < 30:
+        fail(f"batched: inliers {inliers}")
+    return launches, {"B1_ms": float(np.median(ms_1)),
+                      f"B{BATCH_B}_ms": float(np.median(ms_b))}
+
+
+def phase_graft(card):
+    """graft_entry.entry() on the card (the motion-model tracking step) and
+    dryrun_multichip(torch.cuda.device_count()): one sharded GBA step over
+    spawned NCCL ranks."""
+    import torch
+    from object_slam_tpu_torch import graft_entry
+    fn, args = graft_entry.entry("cuda")
+    if args[0].pt_xyz.device.type != "cuda":
+        fail("graft entry: its inputs are not on the card")
+    Tcw, n_inl = fn(*args)
+    torch.cuda.synchronize()
+    if not (bool(torch.isfinite(Tcw).all()) and int(n_inl) > 100):
+        fail(f"graft entry: Tcw finite {bool(torch.isfinite(Tcw).all())}, "
+             f"{int(n_inl)} inliers")
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(n, device="cuda", timeout_s=SHARD_TIMEOUT_S)
+    print(f"graft entry [{card}]: entry ok {tuple(Tcw.shape)} {int(n_inl)} "
+          f"inliers; dryrun_multichip({n}) ok in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def euroc_describe_row():
@@ -2987,18 +3422,21 @@ def kitti_phases(by_phase, card):
           f"{kitti_ms['kitti_sync_replay'][1]:.3f}, async "
           f"{kitti_ms['kitti_async_replay'][0]:.3f} / "
           f"{kitti_ms['kitti_async_replay'][1]:.3f}", flush=True)
-    by_phase["kitti_driver"] = phase_timed("kitti_driver",
-                                           phase_kitti_driver, kitti_poses,
-                                           kitti_frames, card)
+    # the driver (its prefetcher, async mapping), then its directory
+    # decoded by the prefetcher against the PNG reader
+    by_phase["kitti_driver"] = phase_timed(
+        "kitti_driver", phase_kitti_driver, kitti_poses, kitti_frames, card)
+    phase_timed("kitti_prefetch", phase_kitti_prefetch, card)
     return {k: kitti_row[k] for k in ("max_abs_err", "ms", "device_ms",
                                       "plain_ms", "bound_ms", "bound_by")}
 
 
 def mono_child_main(out_json: str):
-    """The second process: mono_phases, then kitti_phases, on the same
-    card; its results (the launches by phase, the phase seconds, the mono
-    ms, orb_describe's KITTI-shape numbers) written to out_json. It
-    renders its own frames for the checkpoint phase."""
+    """The second process: mono_phases, the sharded GBA, batched tracking,
+    then kitti_phases, on the same card; its results (the launches by
+    phase, the phase seconds, the mono, GBA and batched ms, orb_describe's
+    KITTI-shape numbers) written to out_json. It renders its own frames
+    for the checkpoint and batched phases."""
     import torch
     from object_slam_tpu_torch.ops import build
     if not torch.cuda.is_available():
@@ -3008,10 +3446,14 @@ def mono_child_main(out_json: str):
     _, frames, sems = render(tum_cfg(), CKPT_FRAMES)
     by_phase = {}
     mono_ms, init_ms = mono_phases(by_phase, card, frames, sems)
+    gba_ms = phase_timed("sharded_ba", phase_sharded_ba, card)
+    by_phase["batched"], batched_ms = phase_timed("batched", phase_batched,
+                                                  card, frames)
     kitti_row = kitti_phases(by_phase, card)
     with open(out_json, "w") as f:
         json.dump({"by_phase": by_phase, "phase_s": PHASE_S,
                    "mono_ms": mono_ms, "init_ms": init_ms,
+                   "gba_ms": gba_ms, "batched_ms": batched_ms,
                    "kitti_row": kitti_row}, f)
 
 
@@ -3137,8 +3579,14 @@ def main():
                       card)
     by_phase["kidnap_replay"] = kid["replay"]
     by_phase["kidnap_own_sampler"] = kid["own"]
-    by_phase["tum_driver"] = phase_timed("tum_driver", phase_tum, main_cfg,
-                                         poses, frames, sems, card)
+    # the driver (decoding through its prefetcher), then its directory
+    # decoded by the prefetcher against the PNG reader, and --viz-dir
+    by_phase["tum_driver"] = phase_timed(
+        "tum_driver", phase_tum, main_cfg, poses, frames, sems, card)
+    by_phase["tum_driver_viz"] = phase_timed(
+        "prefetch_driver", phase_prefetch_driver, main_cfg, poses, frames,
+        sems, card)
+    phase_timed("graft", phase_graft, card)
     # loop closing: one closure stage by stage (and with each planted
     # fault), the circuit replayed / own decisions / loop off, the kidnap
     # through the BoW relocalization, run_tum_torch.py --loop

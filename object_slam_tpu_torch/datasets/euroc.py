@@ -227,7 +227,13 @@ def euroc_camera_config(calib: EurocCalib, bf: float = 47.90639384423901,
 def load_gray(path: str) -> np.ndarray:
     """One EuRoC image as f32 gray (an RGB file reduced to its luma, as
     scripts/run_euroc.py does)."""
-    g = read_png(path).astype(np.float32)
+    return to_gray(read_png(path))
+
+
+def to_gray(img: np.ndarray) -> np.ndarray:
+    """A decoded image (read_png's, or the native prefetcher's) ->
+    load_gray's f32 gray."""
+    g = img.astype(np.float32)
     if g.ndim == 3:
         g = g[..., :3] @ _LUMA
     return g

@@ -57,8 +57,12 @@ def load_frame_arrays(frame: KittiFrame):
 def load_frame_raw(frame: KittiFrame):
     """(gray_l, gray_r) as u8, the compact form the frame builder takes
     (an RGB file's luma truncated to u8, as scripts/run_kitti.py does)."""
-    gl = read_png(frame.left_path)
-    gr = read_png(frame.right_path)
+    return gray_pair(read_png(frame.left_path), read_png(frame.right_path))
+
+
+def gray_pair(gl: np.ndarray, gr: np.ndarray):
+    """Decoded left and right images (read_png's, or the native
+    prefetcher's) -> load_frame_raw's u8 gray pair."""
     if gl.ndim == 3:
         gl = (gl[..., :3].astype(np.float32) @ _LUMA).astype(np.uint8)
         gr = (gr[..., :3].astype(np.float32) @ _LUMA).astype(np.uint8)

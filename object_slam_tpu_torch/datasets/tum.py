@@ -56,12 +56,17 @@ def load_sequence(seq_dir: str, max_dt: float = 0.02) -> List[TumFrame]:
 def load_frame_raw(frame: TumFrame):
     """(rgb [H, W, 3] uint8, depth [H, W] uint16 raw) of one frame; a gray
     image becomes three equal channels."""
-    rgb = read_png(frame.rgb_path)
+    return frame_arrays(read_png(frame.rgb_path), read_png(frame.depth_path),
+                        frame.depth_path)
+
+
+def frame_arrays(rgb: np.ndarray, depth: np.ndarray, depth_path: str = ""):
+    """Decoded rgb and depth images (read_png's, or the native
+    prefetcher's) -> load_frame_raw's (rgb [H, W, 3] u8, depth u16)."""
     if rgb.ndim == 2:
         rgb = np.stack([rgb] * 3, -1)
-    depth = read_png(frame.depth_path)
     if depth.dtype != np.uint16:
-        raise ValueError(f"{frame.depth_path}: depth must be 16-bit gray")
+        raise ValueError(f"{depth_path}: depth must be 16-bit gray")
     return rgb[..., :3], depth
 
 

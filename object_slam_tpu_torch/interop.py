@@ -21,6 +21,7 @@ from object_slam_tpu_torch.loop.vocabulary import Vocabulary
 from object_slam_tpu_torch.semantic.object2d import Object2DSlab, empty_slab
 from object_slam_tpu_torch.slam.frame import FrameData
 from object_slam_tpu_torch.slam.map_state import MapState
+from object_slam_tpu_torch.solvers.ba import BAProblem
 
 _DESC_FIELDS = {"pt_desc", "kf_kp_desc", "desc"}
 
@@ -95,6 +96,36 @@ def stage_maps(arrays: Mapping[str, np.ndarray], base, names) -> dict:
                 cur[f] = a
         maps[name] = prev = cur
     return maps
+
+
+def ba_problem_from_numpy(arrays: Mapping[str, np.ndarray],
+                          device=None) -> BAProblem:
+    """Reference BAProblem fields (numpy) -> BAProblem on ``device``."""
+    device = resolve_device(device)
+    return BAProblem(**{f: _to_torch(f, arrays[f], device)
+                        for f in BAProblem._fields})
+
+
+def ba_problem_to_numpy(prob: BAProblem) -> dict:
+    return {f: _to_numpy(f, getattr(prob, f)) for f in BAProblem._fields}
+
+
+def stack_numpy(trees) -> dict:
+    """Field dicts of one structure (a frame's nested "obj" dict included)
+    stacked field by field along a new axis 0: the numpy form of a batch
+    (parallel/batched_tracking.py); map_state_from_numpy and
+    frame_from_numpy(..., obj=stacked["obj"]) take it as it is."""
+    return {k: stack_numpy([t[k] for t in trees]) if isinstance(v, dict)
+            else np.stack([np.asarray(t[k]) for t in trees])
+            for k, v in trees[0].items()}
+
+
+def unstack_numpy(tree) -> list:
+    """The inverse of stack_numpy: a list of per-element field dicts."""
+    parts = {k: unstack_numpy(v) if isinstance(v, dict) else list(v)
+             for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: p[b] for k, p in parts.items()} for b in range(n)]
 
 
 def keypoints_from_numpy(arrays: Mapping[str, np.ndarray],

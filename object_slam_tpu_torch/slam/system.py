@@ -72,6 +72,7 @@ from object_slam_tpu_torch.slam.objects import ObjectEngine
 from object_slam_tpu_torch.solvers import ransac
 from object_slam_tpu_torch.solvers.epnp import pnp_ransac_sets
 from object_slam_tpu_torch.solvers.initializer import initialize_mono_sets
+from object_slam_tpu_torch.utils.profiling import StageProfiler
 
 NOT_INITIALIZED, OK, LOST = 0, 1, 2
 STATE_NAMES = {NOT_INITIALIZED: "NOT_INITIALIZED", OK: "OK", LOST: "LOST"}
@@ -212,6 +213,19 @@ class _AsyncMapping:
             self._pool = None
 
 
+# the reference's StageProfiler names (object_slam_tpu/slam/system.py) of
+# the port's _span stages; the staged path opens track.motion_model,
+# track.local_map and track.kf_policy on the profiler alone
+PROFILER_NAMES = {
+    "object_assoc": "track.obj_associate",
+    "object_update": "track.obj_update",
+    "mapping_dispatch": "mapping.dispatch",
+    "local_mapping": "mapping.process_kf",
+    "track_fused": "track.fused",
+    "resolve": "track.resolve",
+}
+
+
 class SlamSystem:
     def __init__(self, cfg: Optional[SlamConfig] = None,
                  enable_objects: bool = True,
@@ -228,9 +242,11 @@ class SlamSystem:
         self.inv_sigma2 = self.builder.inv_sigma2
         self.scale_factors = self.builder.scale_factors
         self.log_scale = math.log(cfg.orb.scale_factor)
-        # per-stage host time (ms), synchronized per span when profiling
-        self.profile = profile
-        self.stage_ms: dict = {}
+        # the reference's stage profiler (utils/profiling.py), on with
+        # ``profile`` or when a caller sets profiler.enabled: its spans
+        # carry the reference's names (PROFILER_NAMES) and synchronize the
+        # card at both ends
+        self.profiler = StageProfiler(enabled=profile, device=self.device)
         self.loop_closer = None
         if enable_loop:
             # a DBoW2 text vocabulary (the reference's ORBvoc.txt format),
@@ -299,20 +315,11 @@ class SlamSystem:
 
     @contextmanager
     def _span(self, name: str):
-        """A torch.profiler range named ``name``; with ``profile`` also a
-        synchronized host timing into ``stage_ms``."""
-        with torch.profiler.record_function(name):
-            if not self.profile:
-                yield
-                return
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            t0 = time.perf_counter()
+        """A torch.profiler range named ``name`` and a profiler span under
+        the reference's name for the stage."""
+        with torch.profiler.record_function(name), \
+                self.profiler.span(PROFILER_NAMES.get(name, name)):
             yield
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.stage_ms.setdefault(name, []).append(
-                (time.perf_counter() - t0) * 1e3)
 
     def _timed(self, name: str, fn):
         """fn inside a profiling span (stages nested in track_fused)."""
@@ -606,31 +613,34 @@ class SlamSystem:
         with self._span("track_staged"):
             T_pred = self.velocity @ last.Tcw
             vo_mode = False
-            if not self.enable_mapping:
-                # localization mode: temporal VO points feed the motion
-                # model where the frozen map is sparse (Tracking.cc:384-514);
-                # mbVO = few matches to map points
-                tr, n_map = trk.track_motion_model_vo(
-                    self.K, self.map, frame, last, T_pred,
-                    self.scale_factors, self.inv_sigma2)
-                nm, ni, n_map = self._counts(tr.n_matches, tr.n_inliers,
-                                             n_map)
-                vo_mode = n_map < 10
-            else:
-                def motion(radius):
-                    tr = trk.track_motion_model(
-                        self.K, self.map, frame, last.uv, last.kp_pt,
-                        last.level, last.valid, T_pred, self.scale_factors,
-                        self.inv_sigma2, radius_th=radius, T_last=last.Tcw,
-                        last_angle=last.angle)
-                    return (tr,) + tuple(self._counts(tr.n_matches,
-                                                      tr.n_inliers))
+            with self.profiler.span("track.motion_model"):
+                if not self.enable_mapping:
+                    # localization mode: temporal VO points feed the
+                    # motion model where the frozen map is sparse
+                    # (Tracking.cc:384-514); mbVO = few matches to map
+                    # points
+                    tr, n_map = trk.track_motion_model_vo(
+                        self.K, self.map, frame, last, T_pred,
+                        self.scale_factors, self.inv_sigma2)
+                    nm, ni, n_map = self._counts(tr.n_matches,
+                                                 tr.n_inliers, n_map)
+                    vo_mode = n_map < 10
+                else:
+                    def motion(radius):
+                        tr = trk.track_motion_model(
+                            self.K, self.map, frame, last.uv, last.kp_pt,
+                            last.level, last.valid, T_pred,
+                            self.scale_factors, self.inv_sigma2,
+                            radius_th=radius, T_last=last.Tcw,
+                            last_angle=last.angle)
+                        return (tr,) + tuple(self._counts(tr.n_matches,
+                                                          tr.n_inliers))
 
-                tr, nm, ni = motion(cfg.tracking.motion_model_radius)
-                if nm < 20:
-                    # wide-window retry (Tracking.cc:967-975 doubles th)
-                    tr, nm, ni = motion(
-                        2.0 * cfg.tracking.motion_model_radius)
+                    tr, nm, ni = motion(cfg.tracking.motion_model_radius)
+                    if nm < 20:
+                        # wide-window retry (Tracking.cc:967-975 doubles th)
+                        tr, nm, ni = motion(
+                            2.0 * cfg.tracking.motion_model_radius)
             tr_ni = ni
             if nm < 20 or ni < 10:
                 # a thin motion-model consensus is refused before it is
@@ -663,16 +673,18 @@ class SlamSystem:
                 # temporal-point pose is the result (Tracking.cc:445-450
                 # skips TrackLocalMap when mbOnlyTracking && mbVO)
                 return self._vo_result(frame, tr, tr_ni, last)
-            if self.objects is not None and bool(torch.any(frame.obj3d >= 0)):
-                with self._span("semopt"):
-                    tr2, self.map, n_sem, _ = \
-                        self.objects.track_local_map_semantic(self.map,
-                                                              frame, tr)
-                n_inl, n_sem = self._counts(tr2.n_inliers, n_sem)
-                self.objects.semantic_constraints += n_sem
-            else:
-                tr2, self.map, _ = self._local(frame, tr, last.Tcw)
-                n_inl = int(tr2.n_inliers)
+            with self.profiler.span("track.local_map"):
+                if self.objects is not None and bool(
+                        torch.any(frame.obj3d >= 0)):
+                    with self._span("semopt"):
+                        tr2, self.map, n_sem, _ = \
+                            self.objects.track_local_map_semantic(
+                                self.map, frame, tr)
+                    n_inl, n_sem = self._counts(tr2.n_inliers, n_sem)
+                    self.objects.semantic_constraints += n_sem
+                else:
+                    tr2, self.map, _ = self._local(frame, tr, last.Tcw)
+                    n_inl = int(tr2.n_inliers)
             ok = n_inl >= 30 or (n_inl >= 10 and self.frame_id < 5)
             if not ok and tr_ni >= 10:
                 # the reference-KF rung before declaring LOST
@@ -703,10 +715,11 @@ class SlamSystem:
             if self._async is not None and self._async.ready():
                 # adopt a finished mapping pass as soon as it lands
                 self._merge_mapping("ready")
-            n_close_trk, n_close_untrk, ref_matches = self._counts(
-                *self._kf_policy_impl(
-                    self.map, frame.depth, frame.kp_pt, frame.valid, ref_id,
-                    3 if int(self.map.n_kf) > 2 else 1))
+            with self.profiler.span("track.kf_policy"):
+                n_close_trk, n_close_untrk, ref_matches = self._counts(
+                    *self._kf_policy_impl(
+                        self.map, frame.depth, frame.kp_pt, frame.valid,
+                        ref_id, 3 if int(self.map.n_kf) > 2 else 1))
             if trk.need_new_keyframe(
                     n_inl, ref_matches, n_close_trk, n_close_untrk,
                     self.frames_since_kf,

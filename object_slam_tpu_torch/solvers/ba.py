@@ -1,17 +1,24 @@
 """Bundle adjustment: Schur-complement Levenberg-Marquardt over
 observation slabs.
 
-Counterpart of object_slam_tpu/solvers/ba.py on one device (the
-reference's ``psum`` over a mesh axis is not part of this slice). The
-problem is a flat observation slab; point blocks are eliminated in closed
-form; the reduced camera system is solved with block-Jacobi
-preconditioned CG; LM step control accepts only cost-decreasing steps.
-Observations use the reference's blocked layout (``block_n``: [Kk,
-block_n] rows per keyframe) and per-point observation-slot table
-(``pt_obs_slot``), so the per-KF and per-point reductions are axis sums;
-``global_ba`` builds that table over the whole map (``obs_slot_table``)
-where the reference takes segment sums. The sharded BA is a later
-slice's.
+Counterpart of object_slam_tpu/solvers/ba.py. The problem is a flat
+observation slab; point blocks are eliminated in closed form; the reduced
+camera system is solved with block-Jacobi preconditioned CG; LM step
+control accepts only cost-decreasing steps. Observations use the
+reference's blocked layout (``block_n``: [Kk, block_n] rows per keyframe)
+and per-point observation-slot table (``pt_obs_slot``), so the per-KF and
+per-point reductions are axis sums; ``global_ba`` builds that table over
+the whole map (``obs_slot_table``) where the reference takes segment sums.
+
+``comm`` is the counterpart of the reference's ``comm_axis`` (its
+``psum`` over a mesh axis): the observation slab holds only the blocks of
+keyframes ``comm.kf_ids`` (ascending) of a problem sharded at
+keyframe-block boundaries (parallel/sharded_ba.py). ``comm.reduce(kf,
+pt, cost)`` sums the per-keyframe partial sums (this rank's rows, zero
+elsewhere), the per-point partial sums and the cost over the ranks, and
+``comm.agree(flag)`` makes every host branch one decision that all ranks
+take. Poses, points and the CG over the reduced camera system are
+replicated. With ``comm=None`` nothing is reduced.
 """
 
 from __future__ import annotations
@@ -117,9 +124,12 @@ def _spd_inv3(H):
 
 
 def _robust_cost(K: Intrinsics, prob: BAProblem, kf_pose, pt_xyz,
-                 chi2_mono, chi2_stereo, block_n: int):
+                 chi2_mono, chi2_stereo, block_n: int, comm=None):
     """Total Huber cost over live observations; points behind a camera
-    carry a 1e4 penalty."""
+    carry a 1e4 penalty. With comm, this shard's observations, summed
+    over the ranks."""
+    if comm is not None:
+        kf_pose = kf_pose[comm.kf_ids]
     r, _, _, stereo, z = _residual_jacobians(K, prob, kf_pose, pt_xyz,
                                              block_n=block_n)
     e2 = torch.where(stereo, torch.sum(r * r, -1),
@@ -131,25 +141,33 @@ def _robust_cost(K: Intrinsics, prob: BAProblem, kf_pose, pt_xyz,
                             torch.zeros_like(z))
     live = (prob.obs_valid & prob.kf_valid[prob.obs_kf.long()]
             & prob.pt_valid[prob.obs_pt.long()])
-    return torch.sum(torch.where(live, rho, torch.zeros_like(rho)))
+    cost = torch.sum(torch.where(live, rho, torch.zeros_like(rho)))
+    if comm is not None:
+        (cost,) = comm.reduce(cost=[cost])[2]
+    return cost
 
 
 def ba_iterate(K: Intrinsics, prob: BAProblem, n_iters: int,
                chi2_mono: float = 5.991, chi2_stereo: float = 7.815,
                damping: float = 1e-4, cg_iters: int = 24,
-               robust: bool = True, *, block_n: int, pt_obs_slot):
+               robust: bool = True, *, block_n: int, pt_obs_slot,
+               comm=None):
     """n_iters LM/Schur iterations with a convergence exit. block_n: the
     observation slots per keyframe; pt_obs_slot [P, M]: each point's
-    observation indices (-1 empty). Returns (kf_pose, pt_xyz)."""
+    observation indices (-1 empty); comm: the all-reduce hook of a
+    sharded slab (module docstring), None on one process. Returns
+    (kf_pose, pt_xyz)."""
     Kk = prob.kf_pose.shape[0]
     O = prob.obs_kf.shape[0]
     obs_pt = prob.obs_pt.long()
     dev = prob.pt_xyz.device
     slot_ok = pt_obs_slot >= 0
     slot_idx = torch.clamp(pt_obs_slot, 0, O - 1).long()
+    # the keyframe blocks of this slab
+    Kl = Kk if comm is None else comm.kf_ids.shape[0]
 
     def seg_kf(vals):
-        return torch.sum(vals.reshape((Kk, block_n) + vals.shape[1:]), dim=1)
+        return torch.sum(vals.reshape((Kl, block_n) + vals.shape[1:]), dim=1)
 
     def seg_pt(vals):
         g = vals[slot_idx]
@@ -157,40 +175,59 @@ def ba_iterate(K: Intrinsics, prob: BAProblem, n_iters: int,
         return torch.sum(torch.where(mask, g, torch.zeros_like(g)), dim=1)
 
     def per_obs_kf(vals):
-        return vals[:, None].expand((Kk, block_n) + vals.shape[1:]) \
+        if comm is not None:
+            vals = vals[comm.kf_ids]
+        return vals[:, None].expand((Kl, block_n) + vals.shape[1:]) \
             .reshape((-1,) + vals.shape[1:])
+
+    def local(kf_pose):
+        return kf_pose if comm is None else kf_pose[comm.kf_ids]
+
+    def reduce(kf=(), pt=()):
+        return (list(kf), list(pt)) if comm is None else \
+            comm.reduce(kf=kf, pt=pt)[:2]
+
+    def decide(flag) -> bool:
+        return bool(flag) if comm is None else comm.agree(flag)
 
     free_kf = (~prob.kf_fixed) & prob.kf_valid
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
     eye3 = torch.eye(3, dtype=torch.float32, device=dev)
 
     def one_iter(kf_pose, pt_xyz, lam, cost):
-        r, Jc, Jp, stereo, z = _residual_jacobians(K, prob, kf_pose, pt_xyz,
-                                                   block_n=block_n)
+        r, Jc, Jp, stereo, z = _residual_jacobians(K, prob, local(kf_pose),
+                                                   pt_xyz, block_n=block_n)
         w, _ = _weights(prob, r, stereo, z, chi2_mono, chi2_stereo, robust)
         Jcw = Jc * w[:, None, None]
         Jpw = Jp * w[:, None, None]
 
-        Hcc = seg_kf(torch.einsum('oik,oil->okl', Jcw, Jc))
-        Hpp = seg_pt(torch.einsum('oik,oil->okl', Jpw, Jp))
+        (Hcc, bc), (Hpp, bp) = reduce(
+            kf=[seg_kf(torch.einsum('oik,oil->okl', Jcw, Jc)),
+                seg_kf(torch.einsum('oik,oi->ok', Jcw, r))],
+            pt=[seg_pt(torch.einsum('oik,oil->okl', Jpw, Jp)),
+                seg_pt(torch.einsum('oik,oi->ok', Jpw, r))])
         Wcp = torch.einsum('oik,oil->okl', Jcw, Jp)
-        bc = -seg_kf(torch.einsum('oik,oi->ok', Jcw, r))
-        bp = -seg_pt(torch.einsum('oik,oi->ok', Jpw, r))
+        bc, bp = -bc, -bp
 
         Hcc = Hcc + lam * (Hcc * eye6) + 1e-6 * eye6
         Hpp = Hpp + lam * (Hpp * eye3) + 1e-6 * eye3
         Hpp_inv = _spd_inv3(Hpp)
 
         y0 = torch.einsum('pkl,pl->pk', Hpp_inv, bp)
-        bt = bc - seg_kf(torch.einsum('okl,ol->ok', Wcp, y0[obs_pt]))
+        (sy0,), _ = reduce(kf=[seg_kf(torch.einsum('okl,ol->ok', Wcp,
+                                                   y0[obs_pt]))])
+        bt = bc - sy0
         bt = torch.where(free_kf[:, None], bt, torch.zeros_like(bt))
 
         def S_matvec(xc):
             xc = torch.where(free_kf[:, None], xc, torch.zeros_like(xc))
             out = torch.einsum('kij,kj->ki', Hcc, xc)
-            tp = seg_pt(torch.einsum('okl,ok->ol', Wcp, per_obs_kf(xc)))
+            _, (tp,) = reduce(pt=[seg_pt(torch.einsum('okl,ok->ol', Wcp,
+                                                      per_obs_kf(xc)))])
             yp = torch.einsum('pkl,pl->pk', Hpp_inv, tp)
-            out = out - seg_kf(torch.einsum('okl,ol->ok', Wcp, yp[obs_pt]))
+            (sy,), _ = reduce(kf=[seg_kf(torch.einsum('okl,ol->ok', Wcp,
+                                                      yp[obs_pt]))])
+            out = out - sy
             return torch.where(free_kf[:, None], out, torch.zeros_like(out))
 
         Hcc_inv = torch.linalg.inv(
@@ -211,7 +248,7 @@ def ba_iterate(K: Intrinsics, prob: BAProblem, n_iters: int,
         rz = torch.sum(bt * pk)
         b_norm2 = torch.sum(bt * bt)
         for _ in range(cg_iters):
-            if not bool(torch.sum(rk * rk) > 1e-4 * b_norm2):
+            if not decide(torch.sum(rk * rk) > 1e-4 * b_norm2):
                 break
             Ap = S_matvec(pk)
             alpha = rz / tiny(torch.sum(pk * Ap))
@@ -224,19 +261,18 @@ def ba_iterate(K: Intrinsics, prob: BAProblem, n_iters: int,
             rz = rz_new
         dxc = xk
 
-        tp = seg_pt(torch.einsum('okl,ok->ol', Wcp, per_obs_kf(dxc)))
-        dxp = torch.einsum('pkl,pl->pk', Hpp_inv, bp - tp)
-        dxp = torch.where(prob.pt_valid[:, None], dxp, torch.zeros_like(dxp))
-
         # trust region on point steps: 25% of the distance to the mean
         # observer, and 0.5 on pose steps
         obs_w = torch.where(w > 0, torch.ones_like(w), torch.zeros_like(w))
-        n_obs_pt = seg_pt(obs_w)
         cam_per_kf = -torch.einsum('kji,kj->ki', kf_pose[:, :3, :3],
                                    kf_pose[:, :3, 3])
         cams = per_obs_kf(cam_per_kf)
-        mean_cam = seg_pt(cams * obs_w[:, None]) \
-            / torch.clamp(n_obs_pt[:, None], min=1.0)
+        _, (tp, n_obs_pt, cam_sum) = reduce(pt=[
+            seg_pt(torch.einsum('okl,ok->ol', Wcp, per_obs_kf(dxc))),
+            seg_pt(obs_w), seg_pt(cams * obs_w[:, None])])
+        dxp = torch.einsum('pkl,pl->pk', Hpp_inv, bp - tp)
+        dxp = torch.where(prob.pt_valid[:, None], dxp, torch.zeros_like(dxp))
+        mean_cam = cam_sum / torch.clamp(n_obs_pt[:, None], min=1.0)
         d_pt = torch.linalg.norm(pt_xyz - mean_cam, dim=-1)
         step = torch.linalg.norm(dxp, dim=-1)
         cap = 0.25 * d_pt + 1e-3
@@ -250,7 +286,8 @@ def ba_iterate(K: Intrinsics, prob: BAProblem, n_iters: int,
                                 se3.retract(kf_pose, dxc), kf_pose)
         cand_pt = pt_xyz + dxp
         cand_cost = _robust_cost(K, prob, cand_pose, cand_pt,
-                                 chi2_mono, chi2_stereo, block_n=block_n)
+                                 chi2_mono, chi2_stereo, block_n=block_n,
+                                 comm=comm)
         accept = cand_cost < cost
         kf_pose = torch.where(accept, cand_pose, kf_pose)
         pt_xyz = torch.where(accept, cand_pt, pt_xyz)
@@ -261,14 +298,14 @@ def ba_iterate(K: Intrinsics, prob: BAProblem, n_iters: int,
 
     kf_pose, pt_xyz = prob.kf_pose, prob.pt_xyz
     cost = _robust_cost(K, prob, kf_pose, pt_xyz, chi2_mono, chi2_stereo,
-                        block_n=block_n)
+                        block_n=block_n, comm=comm)
     lam = torch.tensor(damping, dtype=torch.float32, device=dev)
     for _ in range(n_iters):
         kf_pose, pt_xyz, lam, new_cost = one_iter(kf_pose, pt_xyz, lam, cost)
         accepted = new_cost < cost
         tiny_dec = new_cost > cost * (1.0 - 1e-4)
         cost = new_cost
-        if bool((accepted & tiny_dec) | (lam >= 1e3)):
+        if decide((accepted & tiny_dec) | (lam >= 1e3)):
             break
     return kf_pose, pt_xyz
 
@@ -325,10 +362,11 @@ def obs_slot_table(prob: BAProblem):
 
 
 def global_ba(K: Intrinsics, prob: BAProblem, iters: int = 10, *,
-              block_n: int):
+              block_n: int, comm=None, cg_iters: int = 24):
     """GlobalBundleAdjustment (Optimizer.cc:41-237): robust Huber edges
     over the whole map, the caller fixing kf_fixed[0]; the observations in
     [K, block_n] row-major blocks, the per-point sums over obs_slot_table
-    (the reference's segment sums, in a fixed order)."""
-    return ba_iterate(K, prob, iters, block_n=block_n,
-                      pt_obs_slot=obs_slot_table(prob))
+    (the reference's segment sums, in a fixed order). With comm, prob's
+    slab is one rank's shard and the table is that shard's."""
+    return ba_iterate(K, prob, iters, cg_iters=cg_iters, block_n=block_n,
+                      pt_obs_slot=obs_slot_table(prob), comm=comm)

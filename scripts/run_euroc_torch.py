@@ -14,8 +14,11 @@ ATE.
 
 As in the reference, the ATE aligns by a rigid transform only, which
 means nothing for a monocular trajectory: its scale is free. Frames are
-decoded inline by the port's PNG reader (no prefetch thread); the CUDA
-kernels are built before the timed loop.
+decoded off the tracking thread by the native prefetcher
+(object_slam_tpu_torch/native: the left image under id 2i, the right under
+2i + 1 unless mono, 4 worker threads, 6 decoded images ahead), as
+run_euroc.py does; the arrays equal the port's PNG reader's
+(datasets/png.py). The CUDA kernels are built before the timed loop.
 
 Usage:
   python scripts/run_euroc_torch.py --mav MAV0_DIR --calib SETTINGS.yaml
@@ -80,20 +83,28 @@ def main():
         build.load_all(["orb_describe"])
         print(f"kernels built in {time.perf_counter() - t0:.1f} s")
 
+    from object_slam_tpu_torch.native.loader import FramePrefetcher
+    pf = FramePrefetcher(n_workers=4, capacity=6)
+    for i, fr in enumerate(frames):
+        pf.submit(2 * i, fr.left_path)
+        if not args.mono:
+            pf.submit(2 * i + 1, fr.right_path)
+
     t0 = time.perf_counter()
     for i, fr in enumerate(frames):
-        gl = euroc.load_gray(fr.left_path)
+        gl = euroc.to_gray(pf.get(2 * i)[0])
         if args.mono:
             gl = euroc.remap_bilinear(gl, rect.lx, rect.ly)
             sys_.track_mono(gl, timestamp=fr.timestamp)
         else:
-            gl, gr = rect(gl, euroc.load_gray(fr.right_path))
+            gl, gr = rect(gl, euroc.to_gray(pf.get(2 * i + 1)[0]))
             # rgb None: the left image three times, made on the device
             sys_.track_stereo(gl, gr, None, None, timestamp=fr.timestamp)
         if i % 100 == 0:
             print(f"frame {i}/{len(frames)} kfs={sys_.n_keyframes}",
                   flush=True)
     total = time.perf_counter() - t0
+    pf.close()
 
     os.makedirs(args.out, exist_ok=True)
     traj = sys_.final_trajectory()

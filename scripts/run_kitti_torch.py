@@ -9,9 +9,13 @@ summary: ms per frame, keyframes, points, objects, semantic constraints,
 and with ``--gt`` the ATE and RPE.
 
 Async mapping is the default, as in run_kitti.py (``--sync-mapping`` runs
-each keyframe's mapping pass inline). Frames are decoded inline by the
-port's PNG reader (no prefetch thread) and fed as u8 gray pairs with
-``rgb=None``. The CUDA kernels are built before the timed loop; torch
+each keyframe's mapping pass inline). Frames are decoded off the tracking
+thread by the native prefetcher (object_slam_tpu_torch/native: both
+images of every frame submitted up front under ids 2i and 2i + 1, each
+taken once, 4 worker threads, 6 decoded images ahead), as run_kitti.py
+does; the arrays equal the port's PNG reader's (datasets/png.py). They
+are fed as u8 gray pairs with ``rgb=None``. ``--viz-dir`` writes the map viewer
+page (map.html) there. The CUDA kernels are built before the timed loop; torch
 compiles nothing else, so there is no scratch-system prewarm, and the two
 faults of run_kitti.py's prewarm (a scratch system built without the run's
 flags, and prewarm iterations not clamped to the sequence) have nothing
@@ -20,7 +24,8 @@ to carry over.
 Usage:
   python scripts/run_kitti_torch.py --seq DIR [--gt FILE]
       [--semantic-dir DIR] [--out OUT_DIR] [--max-frames N]
-      [--sync-mapping] [--loop [--vocab VOCAB.txt]] [--device cuda|cpu]
+      [--sync-mapping] [--loop [--vocab VOCAB.txt]] [--viz-dir DIR]
+      [--device cuda|cpu]
 """
 
 import argparse
@@ -50,6 +55,9 @@ def main():
     ap.add_argument("--vocab", default=None,
                     help="a DBoW2 text vocabulary (ORBvoc.txt format) for "
                          "--loop; default: the package's vocab_synth.txt")
+    ap.add_argument("--viz-dir", default=None,
+                    help="write the interactive map viewer page to this "
+                         "directory")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args()
@@ -76,11 +84,17 @@ def main():
         build.load_all(["orb_describe"])
         print(f"kernels built in {time.perf_counter() - t0:.1f} s")
 
+    from object_slam_tpu_torch.native.loader import FramePrefetcher
+    pf = FramePrefetcher(n_workers=4, capacity=6)
+    for i, fr in enumerate(frames):
+        pf.submit(2 * i, fr.left_path)
+        pf.submit(2 * i + 1, fr.right_path)
+
     t0 = time.perf_counter()
     times, loop_times = [], []
     for i, fr in enumerate(frames):
         ti0 = time.perf_counter()
-        gl, gr = kitti.load_frame_raw(fr)
+        gl, gr = kitti.gray_pair(pf.get(2 * i)[0], pf.get(2 * i + 1)[0])
         sem_arrays = None
         if args.semantic_dir:
             sem_arrays = kitti.load_semantics(args.semantic_dir, fr.index,
@@ -94,6 +108,12 @@ def main():
                   flush=True)
     sys_.flush_mapping()
     total = time.perf_counter() - t0
+    pf.close()
+    if args.viz_dir:
+        from object_slam_tpu_torch.viz.map_viewer import export_map_html
+        print("map viewer:", export_map_html(
+            sys_.map, trajectory=sys_.trajectory,
+            path=os.path.join(args.viz_dir, "map.html")))
 
     os.makedirs(args.out, exist_ok=True)
     traj = sys_.final_trajectory()

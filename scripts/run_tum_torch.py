@@ -7,17 +7,25 @@ CameraTrajectory.txt / KeyFrameTrajectory.txt / ObjectInfo.txt, and print
 the same JSON summary (fps, per-frame track times, keyframes, points, and
 the ATE against groundtruth.txt when the sequence has one).
 
-Frames are decoded inline by the port's PNG reader (no prefetch thread)
-and fed as u8 rgb + raw u16 depth; the frame builder converts on the
-device.
+Frames are decoded off the tracking thread by the native prefetcher
+(object_slam_tpu_torch/native: every frame submitted up front, 4 worker
+threads, 8 decoded frames ahead), as run_tum.py does; the arrays equal
+the port's PNG reader's (datasets/png.py). They are fed as u8 rgb + raw
+u16 depth; the frame builder converts on the device.
+
+``--viz-dir`` writes an overlay PNG per frame, the scrubber page
+(index.html) and the map viewer page (map.html) there; as in run_tum.py
+it forces the strict readback, so that each overlay shows its own frame's
+tracking result.
 
 Usage:
   python scripts/run_tum_torch.py --seq DIR [--semantic-dir DIR]
       [--out OUT_DIR] [--max-frames N] [--no-objects] [--metrics PATH]
-      [--loop [--vocab VOCAB.txt]] [--device cuda|cpu]
+      [--loop [--vocab VOCAB.txt]] [--viz-dir DIR] [--device cuda|cpu]
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -44,6 +52,10 @@ def main():
     ap.add_argument("--vocab", default=None,
                     help="a DBoW2 text vocabulary (ORBvoc.txt format) for "
                          "--loop; default: the package's vocab_synth.txt")
+    ap.add_argument("--viz-dir", default=None,
+                    help="write per-frame overlay PNGs, the scrubber page "
+                         "and the map viewer page to this directory "
+                         "(forces the strict readback)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args()
@@ -53,7 +65,7 @@ def main():
     from object_slam_tpu_torch.eval import ate as ate_mod
     from object_slam_tpu_torch.eval import trajectory_io
     from object_slam_tpu_torch.semantic import loader as sem_loader
-    from object_slam_tpu_torch.slam.system import SlamSystem
+    from object_slam_tpu_torch.slam.system import STATE_NAMES, SlamSystem
 
     cfg = SlamConfig.tum_rgbd()
     frames = tum.load_sequence(args.seq)
@@ -65,15 +77,29 @@ def main():
     if args.metrics:
         from object_slam_tpu_torch.utils.metrics import MetricsStream
         metrics = MetricsStream(args.metrics)
+    scrub = None
+    if args.viz_dir:
+        # the scrubber reads each frame's state and pose at once; with the
+        # one-frame-lagged readback they would belong to the frame before
+        cfg = cfg.replace(tracking=dataclasses.replace(
+            cfg.tracking, pipelined_readback=False))
+        from object_slam_tpu_torch.viz.scrubber import Scrubber
+        scrub = Scrubber(args.viz_dir, fps=cfg.camera.fps)
     sys_ = SlamSystem(cfg, enable_objects=not args.no_objects,
                       enable_loop=args.loop, vocab_path=args.vocab,
                       device=args.device, metrics=metrics)
+
+    from object_slam_tpu_torch.native.loader import FramePrefetcher
+    pf = FramePrefetcher(n_workers=4, capacity=8)
+    for i, fr in enumerate(frames):
+        pf.submit(i, fr.rgb_path, fr.depth_path)
 
     t0 = time.perf_counter()
     times, loop_times = [], []
     for i, fr in enumerate(frames):
         ti0 = time.perf_counter()
-        rgb, depth16 = tum.load_frame_raw(fr)
+        rgb, depth, _ = pf.get(i)
+        rgb, depth16 = tum.frame_arrays(rgb, depth, fr.depth_path)
         sem_arrays = None
         if args.semantic_dir:
             dets = sem_loader.read_semantic_dir(
@@ -84,17 +110,28 @@ def main():
                     dets, cfg.semantic.max_instances, cfg.camera.height,
                     cfg.camera.width)
         tf0 = time.perf_counter()
-        sys_.track_rgbd(None, depth16, rgb, sem_arrays,
-                        timestamp=fr.timestamp)
+        f = sys_.track_rgbd(None, depth16, rgb, sem_arrays,
+                            timestamp=fr.timestamp)
         times.append(time.perf_counter() - tf0)
+        if scrub is not None:
+            scrub.add_frame(rgb, f, state=STATE_NAMES[sys_.state],
+                            n_inliers=int(sys_._last_n_inliers),
+                            kfs=sys_.n_keyframes, ref_kf=sys_.last_kf_id)
         loop_times.append(time.perf_counter() - ti0)
         if i % 50 == 0:
             print(f"frame {i}/{len(frames)} kfs={sys_.n_keyframes} "
                   f"pts={sys_.n_points}")
     sys_.flush_mapping()
     total = time.perf_counter() - t0
+    pf.close()
     if metrics is not None:
         metrics.close()
+    if scrub is not None:
+        from object_slam_tpu_torch.viz.map_viewer import export_map_html
+        print("scrubber:", scrub.write())
+        print("map viewer:", export_map_html(
+            sys_.map, trajectory=sys_.trajectory,
+            path=os.path.join(args.viz_dir, "map.html")))
 
     os.makedirs(args.out, exist_ok=True)
     traj = sys_.final_trajectory()

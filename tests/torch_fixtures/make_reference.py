@@ -41,6 +41,13 @@ inputs and outputs are recorded here once and committed:
   frames map, 14 in the mode panning past the map and back, 8 map again);
 * ``euroc_driver.npz``: scripts/run_euroc.py's stereo loop, through the
   library, on chip_smoke.py's 10-frame EuRoC directory.
+* ``parallel.npz``: tests/test_parallel.py's problem
+  (tests/test_solvers.py::build_ba_problem, 5 keyframes, 200 points, noise
+  0.2) with the unsharded ba_iterate (5 iterations) and
+  run_sharded_global_ba on a 2-device CPU mesh;
+* ``batched.npz``: tests/test_batched.py's four sequences
+  (make_sequence_state, seeds 0-3) through BatchedTracker.step, inputs and
+  outputs.
 
 Run from the repository root (all parts, or the ones named):
 
@@ -48,6 +55,7 @@ Run from the repository root (all parts, or the ones named):
         [tum_vga] [pipelined] [kidnap] [pipelined_tum_vga] [kidnap_tum_vga]
         [stereo] [kitti_stereo] [mono_small] [mono_euroc]
         [localization_small] [localization_tum_vga] [euroc_driver]
+        [parallel] [batched]
 
 slice1, objects and tum_vga use ``pipelined_readback=False``. The rendered
 inputs' checksums are stored so that the tests can prove they re-render
@@ -62,6 +70,10 @@ import os
 import sys
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
+if "parallel" in sys.argv[1:] or len(sys.argv) == 1:
+    # the sharded run's 2-device mesh (before jax is imported)
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_"
+                               "force_host_platform_device_count=2").strip()
 
 import jax  # noqa: E402
 
@@ -2208,6 +2220,66 @@ def record_euroc_driver():
           f"{OUT_EUROC_DRIVER}", flush=True)
 
 
+OUT_PARALLEL = os.path.join(HERE, "parallel.npz")
+OUT_BATCHED = os.path.join(HERE, "batched.npz")
+
+
+def record_parallel():
+    from object_slam_tpu.parallel.sharded_ba import run_sharded_global_ba
+    from object_slam_tpu.solvers.ba import ba_iterate
+    from tests.test_solvers import build_ba_problem
+    K = Intrinsics.from_config(SlamConfig().camera)
+    prob, _, _ = build_ba_problem(jax.random.PRNGKey(0), n_kf=5, n_pt=200,
+                                  noise=0.2)
+    out = {f"prob.{f}": np.asarray(getattr(prob, f))
+           for f in BAProblem._fields}
+    kf, pt = ba_iterate(K, prob, 5)
+    out["ref.kf_pose"], out["ref.pt_xyz"] = np.asarray(kf), np.asarray(pt)
+    kf, pt = run_sharded_global_ba(K, prob, devices=jax.devices()[:2],
+                                   n_iters=5)
+    out["shard2.kf_pose"], out["shard2.pt_xyz"] = (np.asarray(kf),
+                                                   np.asarray(pt))
+    np.savez_compressed(OUT_PARALLEL, **out)
+    print(f"parallel: wrote {OUT_PARALLEL}", flush=True)
+
+
+def record_batched():
+    from object_slam_tpu.geometry import camera as cam_mod
+    from object_slam_tpu.parallel.batched_tracking import (BatchedTracker,
+                                                           stack_pytrees)
+    from tests.test_batched import make_sequence_state
+    cfg = SlamConfig(caps=CapacityConfig(n_kp=128, max_points=512,
+                                         max_keyframes=8))
+    K = cam_mod.Intrinsics.from_config(cfg.camera)
+    sf = jnp.asarray([1.2 ** l for l in range(8)], jnp.float32)
+    B, N = 4, cfg.caps.n_kp
+    parts = [make_sequence_state(cfg, K, s) for s in range(B)]
+    maps = stack_pytrees([p[0] for p in parts])
+    frames = stack_pytrees([p[1] for p in parts])
+    args = dict(last_uv=jnp.stack([p[2] for p in parts]),
+                last_pt=jnp.stack([p[3] for p in parts]),
+                last_level=jnp.zeros((B, N), jnp.int32),
+                last_valid=jnp.ones((B, N), bool),
+                T_pred=jnp.broadcast_to(jnp.eye(4), (B, 4, 4)))
+    bt = BatchedTracker(K, sf, 1.0 / (sf * sf), float(np.log(1.2)))
+    res, maps2 = bt.step(maps, frames, *args.values())
+    out = {}
+    put_map(out, "maps", maps)
+    put_frame(out, "frames", frames)
+    for f in Object2DSlab._fields:
+        out[f"frames.obj.{f}"] = np.asarray(getattr(frames.obj, f))
+    for k, v in args.items():
+        out[k] = np.asarray(v)
+    out["T_true"] = np.asarray(jnp.stack([p[4] for p in parts]))
+    for f in ("Tcw", "kp_pt", "inlier", "n_matches", "n_inliers"):
+        out[f"res.{f}"] = np.asarray(getattr(res, f))
+    out["out.pt_visible"] = np.asarray(maps2.pt_visible)
+    out["out.pt_found"] = np.asarray(maps2.pt_found)
+    np.savez_compressed(OUT_BATCHED, **out)
+    print(f"batched: wrote {OUT_BATCHED}; inliers "
+          f"{np.asarray(res.n_inliers).tolist()}", flush=True)
+
+
 def main():
     parts = sys.argv[1:] or ["slice1", "objects", "tum_vga", "pipelined",
                              "kidnap", "pipelined_tum_vga", "kidnap_tum_vga",
@@ -2215,7 +2287,8 @@ def main():
                              "kitti_objects", "loop_small",
                              "loop_circuit_tum_vga", "kidnap_loop_tum_vga",
                              "mono_small", "mono_euroc", "localization_small",
-                             "localization_tum_vga", "euroc_driver"]
+                             "localization_tum_vga", "euroc_driver",
+                             "parallel", "batched"]
     if "slice1" in parts:
         out = {}
         record_local_ba(out)
@@ -2286,6 +2359,10 @@ def main():
         record_localization_tum_vga()
     if "euroc_driver" in parts:
         record_euroc_driver()
+    if "parallel" in parts:
+        record_parallel()
+    if "batched" in parts:
+        record_batched()
 
 
 if __name__ == "__main__":
