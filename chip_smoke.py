@@ -13,8 +13,9 @@ Phases, each fatal on failure:
      CUDA-event times of the wrapper call (median of 100 after warm-up),
      the kernel's device time (torch.profiler), and the bound for the
      same work: extract_patches (one frame's 16 per-level launches, off the
-     main path since orb_describe took its place) and orb_describe (one
-     launch for the frame);
+     tracking paths since orb_describe took its place; its path is the
+     BRIEF-pattern learner of 12) and orb_describe (one launch for the
+     frame);
   3. strict readback, objects off: SlamSystem.track_rgbd on 40 rendered
      TUM-VGA frames (pipelined_readback=False) on the card, its
      StageProfiler report printed (as in 4), with every
@@ -143,10 +144,32 @@ Phases, each fatal on failure:
      the single-sequence calls, two maps swapped (must fail), 4
      orb_describe per step; then 8 and 9 (the KITTI directory's arrays
      held to the PNG reader's too);
- 11. one JSON line of the kernels (launches from the main path of 5,
-     host-in-the-loop, and per phase; orb_describe's row also carries its
-     KITTI-shape and EuRoC-shape numbers), the phase seconds, the card
-     line, and the last line {"ok": true, "device": {...}}.
+ 11. in a third process on the same card, started beside the second,
+     the offline tools (tools_child_main): scripts/make_synth_tum_torch.py
+     (40 frames) and make_synth_kitti_torch.py (24) under build/, every
+     file held to the reference scripts' (experiments.npz: the text byte
+     for byte, each PNG's decoded array bit for bit); the experiment
+     battery of scripts/run_experiments_torch.py on those directories, 24
+     frames per variant (t200_a, t200_b, objects off, the semantic
+     optimizer off, async, the loop; KITTI inline and async), each held
+     to the reference's functions on the same directories (phase
+     docstring), one orb_describe per TUM frame and two per KITTI pair;
+     scripts/train_vocab_torch.py at full size (80 renders, 80
+     orb_describe), the file byte for byte the reference's CPU run's;
+     scripts/train_brief_pattern_torch.py at full size: the harvest (one
+     orb_describe and up to 8 extract_patches per render, each launch
+     bit-exact to extract_patches_ref, the count asserted), the selection
+     over ~60.7k tests x 50,000 patches on the card, its quality line
+     beside the committed pattern's; then the selection on an integer
+     corpus of 8000 patches held row for row to the reference's main()
+     (a parting row must sit on a float tie);
+ 12. one JSON line of the kernels (orb_describe: launches from the main
+     path of 5, host-in-the-loop, and per phase, with its KITTI-shape and
+     EuRoC-shape numbers; extract_patches: its launches on the BRIEF
+     harvest of 11 and its numbers at the harvest's shapes, one render's
+     launches, with the frame-shape numbers of 2 beside them), the phase
+     seconds, the card line, and the last line {"ok": true, "device":
+     {...}}.
 
 Exits non-zero without a card, and when the port's package is absent.
 """
@@ -272,24 +295,31 @@ def cuda_time_ms(fn, reps: int = 100, warmup: int = 10) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, kernel: str, reps: int = 20) -> float:
+def device_ms(fn, kernel: str, reps: int = 20, attempts: int = 5) -> float:
     """Device time of the CUDA kernels whose name holds `kernel`, per call
-    of fn(), summed over their launches, from torch.profiler's trace."""
+    of fn(), summed over their launches, from torch.profiler's trace. A
+    trace that holds none of them is taken again, up to `attempts` times
+    (with three processes on the card a trace has come back without its
+    device events)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel in e.name]
-    if not spans:
-        fail(f"the profiler traced no {kernel} on the card")
-    return sum(spans) / reps / 1e3
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and kernel in e.name]
+        if spans:
+            return sum(spans) / reps / 1e3
+        print(f"the profiler traced no {kernel} on the card (trace "
+              f"{attempt + 1} of {attempts})", flush=True)
+    fail(f"the profiler traced no {kernel} on the card")
 
 
 def tum_cfg():
@@ -343,14 +373,26 @@ def main_path_inputs(cfg, gray):
 def phase_patches(levels, corners):
     """extract_patches against its plain version at the main path's
     shapes: one frame's 2 launches per pyramid level (raw and blurred)."""
-    import torch
     from object_slam_tpu_torch.features import pyramid as pyr
-    from object_slam_tpu_torch.ops import patch as patch_mod
 
     calls = []
     for l, ys_t, xs_t in corners:
         for im in (levels[l], pyr.gaussian_blur(levels[l]).contiguous()):
             calls.append((im, ys_t, xs_t))
+    row = patch_row(calls, "one TUM frame's 16 windows per level")
+    return {"name": "extract_patches", "route": "cuda",
+            "source": "object_slam_tpu_torch/csrc/patch_extract.cu",
+            "replaces": "object_slam_tpu/ops/patch_pallas.py:74",
+            "launches": 0, **row}
+
+
+def patch_row(calls, tag):
+    """extract_patches on the calls [(img, ys, xs)], each launch held
+    bit-exact to its plain version on the same inputs, then timed as one
+    batch of launches (CUDA events; the device time from torch.profiler),
+    beside the plain version, an advanced-indexing gather and the bound."""
+    import torch
+    from object_slam_tpu_torch.ops import patch as patch_mod
 
     max_err = 0.0
     for im, ys_t, xs_t in calls:
@@ -361,7 +403,6 @@ def phase_patches(levels, corners):
             fail("extract_patches kernel differs from its plain version")
         max_err = max(max_err, float((k - p).abs().max()))
 
-    # one frame's worth of launches (all levels, raw + blurred)
     def run_kernel():
         for im, ys_t, xs_t in calls:
             patch_mod.extract_patches_cuda(im, ys_t, xs_t)
@@ -388,8 +429,8 @@ def phase_patches(levels, corners):
     plain_ms = cuda_time_ms(run_plain)
     library_ms = cuda_time_ms(run_library)
     # bound: every output byte written once, every input byte the windows
-    # touch read once (the union of a level's windows; each level's corner
-    # arrays once, shared by its raw and blurred call)
+    # touch read once (the union of an image's windows; each corner array
+    # once, shared by the calls that pass it)
     n_bytes = 0
     seen = set()
     for im, yy, xx in gathers:
@@ -402,17 +443,14 @@ def phase_patches(levels, corners):
             n_bytes += 2 * ys_t.shape[0] * 4
     bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     n_patches = sum(c[1].shape[0] for c in calls)
-    print(f"extract_patches: {len(calls)} launches, {n_patches} patches per "
-          f"frame; kernel {ms * 1e3:.1f} us ({dev_ms * 1e3:.2f} us on the "
-          f"device), plain {plain_ms * 1e3:.1f} us, "
-          f"gather {library_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us "
-          f"({n_bytes / 2 ** 20:.1f} MiB); bit-exact", flush=True)
-    return {"name": "extract_patches", "route": "cuda",
-            "source": "object_slam_tpu_torch/csrc/patch_extract.cu",
-            "replaces": "object_slam_tpu/ops/patch_pallas.py:74",
-            "launches": 0, "max_abs_err": max_err, "ms": ms,
-            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": library_ms}
+    print(f"extract_patches ({tag}): {len(calls)} launches, {n_patches} "
+          f"windows; kernel {ms * 1e3:.1f} us ({dev_ms * 1e3:.2f} us on "
+          f"the device), plain {plain_ms * 1e3:.1f} us, gather "
+          f"{library_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us "
+          f"({n_bytes / 2 ** 20:.2f} MiB); bit-exact", flush=True)
+    return {"max_abs_err": max_err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": library_ms}
 
 
 def phase_describe(ex, levels, corners, tag: str = "TUM VGA"):
@@ -3373,6 +3411,442 @@ def mono_phases(by_phase, card, frames, sems):
     return mono_ms, init_ms
 
 
+# ---------------------------------------------------------------------------
+# the offline tools (a third process): the dataset generators, the
+# experiment battery, the vocabulary trainer, the BRIEF-pattern learner
+# ---------------------------------------------------------------------------
+
+EXP_REF = os.path.join(FIXTURES, "experiments.npz")
+VOCAB_REF = os.path.join(FIXTURES, "vocab_train.npz")
+BRIEF_REF = os.path.join(FIXTURES, "brief.npz")
+SCRIPTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts")
+# the generators' directories and the battery's depth (make_reference.py
+# experiments ran the reference's functions on the same)
+SYNTH_TUM_FRAMES = 40
+SYNTH_KITTI_FRAMES = 24
+EXP_DEPTH = 24
+# the battery's KITTI scratch prewarm (its system is thrown away: the
+# results do not depend on it; the reference's takes 12 frames)
+EXP_KITTI_PREWARM = 2
+# the BRIEF selection held row for row on an integer corpus of this size
+# (brief_cases.integer_corpus; the reference's main() on the same)
+BRIEF_CARD_CORPUS = 8000
+# a row where the card's selection parts from the reference's must sit on
+# a float tie: some test's |correlation| within this of the threshold
+BRIEF_TIE = 1e-5
+BRIEF_QUALITY_TOL = 1e-3
+# the vocabulary harvest's rows that may part from the reference's: 0.1%
+# of its 67,246, orb_describe's stated bin tolerance
+VOCAB_DESC_DIFF = 67
+TOOLS_ARG = "--tools-phases"
+
+
+def tools_root():
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "tools_smoke")
+
+
+def script_module(name):
+    if SCRIPTS not in sys.path:
+        sys.path.insert(0, SCRIPTS)
+    import importlib
+    return importlib.import_module(name)
+
+
+def counts_now():
+    return {k: fn.launches for k, fn in counters().items()}
+
+
+def file_digests(root):
+    """make_reference.py's synth_digests with the port's PNG reader: {path
+    under root: sha256 of a PNG's decoded array (dtype, shape, bytes) or
+    of another file's bytes}."""
+    import hashlib
+    from object_slam_tpu_torch.datasets.png import read_png
+    out = {}
+    for sub in ("tum", "kitti"):
+        for dirpath, _, files in os.walk(os.path.join(root, sub)):
+            for f in files:
+                path = os.path.join(dirpath, f)
+                if f.endswith(".png"):
+                    a = read_png(path)
+                    data = f"{a.dtype.str}{a.shape}".encode() + a.tobytes()
+                else:
+                    data = open(path, "rb").read()
+                out[os.path.relpath(path, root)] = hashlib.sha256(
+                    data).hexdigest()
+    return out
+
+
+def phase_synth_dirs(card):
+    """scripts/make_synth_tum_torch.py (SYNTH_TUM_FRAMES frames) and
+    make_synth_kitti_torch.py (SYNTH_KITTI_FRAMES) under build/, each file
+    held to the reference scripts' (experiments.npz "synth_digests"):
+    text byte for byte, every PNG's decoded array bit for bit."""
+    import shutil
+    root = tools_root()
+    shutil.rmtree(root, ignore_errors=True)
+    secs = {}
+    for script, sub, n in (("make_synth_tum_torch", "tum", SYNTH_TUM_FRAMES),
+                           ("make_synth_kitti_torch", "kitti",
+                            SYNTH_KITTI_FRAMES)):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, os.path.join(
+            SCRIPTS, script + ".py"), "--out", os.path.join(root, sub),
+            "--frames", str(n)], capture_output=True, text=True, timeout=600)
+        secs[sub] = round(time.perf_counter() - t0, 1)
+        if out.returncode != 0:
+            fail(f"{script}.py exited {out.returncode}: {out.stderr[-2000:]}")
+    want = json.loads(str(np.load(EXP_REF)["synth_digests"]))
+    got = file_digests(root)
+    missing = sorted(set(want) ^ set(got))
+    bad = sorted(k for k in set(want) & set(got) if want[k] != got[k])
+    n_png = sum(k.endswith(".png") for k in want)
+    print(f"synth dirs [{card}]: {SYNTH_TUM_FRAMES} TUM frames in "
+          f"{secs['tum']} s, {SYNTH_KITTI_FRAMES} KITTI pairs in "
+          f"{secs['kitti']} s; {len(got)} files ({n_png} PNGs) against the "
+          f"reference scripts': {len(missing)} missing or extra, "
+          f"{len(bad)} differ {bad[:5]}", flush=True)
+    if missing or bad:
+        fail(f"synth dirs: {len(missing)} files missing or extra "
+             f"{missing[:5]}, {len(bad)} differ {bad[:5]}")
+    return root
+
+
+def phase_experiments(root, card):
+    """scripts/run_experiments_torch.py's functions on the generated
+    directories, EXP_DEPTH frames per variant: every TUM variant of its
+    list, then run_kitti inline and async, each held to the reference's
+    run of its functions on the same directories (experiments.npz). TUM
+    sync variants: tracked flags and keyframe frames equal, objects and
+    semantic constraints within 10%, ATE within ATE_BAND_M of the
+    reference's; t200_async (the mapping thread merges when it is
+    ready): flags, objects, constraints, ATE < 0.05 m, its keyframes
+    printed; KITTI: as phase_kitti holds a drive on its own decisions
+    (flags, objects, constraints, the async keyframes against the
+    witness, ATE < KITTI_OWN_ATE_M), the ATE beside the reference's and
+    the noise-ensemble band printed. One orb_describe per TUM frame, two
+    per KITTI pair (prewarm included). Prints the t200_a / t200_b
+    spread."""
+    from object_slam_tpu_torch.config import SlamConfig
+    rex = script_module("run_experiments_torch")
+    ref = np.load(EXP_REF)
+    cfg = SlamConfig.tum_rgbd()
+    tum_dir, kitti_dir = (os.path.join(root, s) for s in ("tum", "kitti"))
+    t0 = time.perf_counter()
+    metas, frames = rex.load_tum_frames(tum_dir, cfg, EXP_DEPTH)
+    load_s = time.perf_counter() - t0
+    # a short prewarm (the allocator's caches; no result depends on it)
+    rex.run_tum_variant(tum_dir, cfg, frames[:4], metas[:4], device="cuda",
+                        enable_objects=True)
+    bad, lines, launches, recs = [], [], {}, {}
+
+    def check(name, what, got, want, ok):
+        lines.append(f"{what} {got} (reference {want})"
+                     + ("" if ok else " FAILED"))
+        if not ok:
+            bad.append(f"{name}: {what}")
+
+    def held(name, res, sys_, strict):
+        want = json.loads(str(ref[f"{name}.json"]))
+        tracked = [r.tracked for r in sys_.trajectory]
+        kv = sys_.map.kf_valid.cpu().numpy()
+        kfs = sys_.map.kf_frame_id.cpu().numpy()[kv].tolist()
+        lines.append(f"{name}:")
+        check(name, "tracked", sum(tracked), want["tracked"],
+              tracked == ref[f"{name}.tracked"].tolist())
+        kf_ok = kfs == ref[f"{name}.kf_frames"].tolist()
+        check(name, "keyframes", kfs, ref[f"{name}.kf_frames"].tolist(),
+              kf_ok or not strict)
+        for k in ("objects", "semantic_constraints"):
+            if k in want:
+                check(name, k, res[k], want[k],
+                      abs(res[k] - want[k]) <= 0.1 * want[k])
+        return want, tracked, kfs
+
+    for name, vcfg, kw in rex.tum_variants(cfg):
+        zero_counts()
+        systems = []
+        res = rex.run_tum_variant(tum_dir, vcfg, frames, metas,
+                                  device="cuda", systems=systems, **kw)
+        launches[name] = read_counts(f"experiments {name}", len(frames))
+        sys_ = systems[-1]
+        strict = not kw.get("async_mapping", False)
+        want, _, _ = held(name, res, sys_, strict)
+        ate, ate_j = res["ate_rmse"], want["ate_rmse"]
+        if strict:
+            check(name, "ATE mm", round(ate * 1e3, 5),
+                  f"{ate_j * 1e3:.5f} +- {ATE_BAND_M * 1e3}",
+                  abs(ate - ate_j) <= ATE_BAND_M)
+        else:
+            check(name, "ATE mm", round(ate * 1e3, 5),
+                  f"{ate_j * 1e3:.5f}; limit 50", ate < 0.05)
+        if "loops_closed" in want:
+            check(name, "loops closed / rejected",
+                  (res["loops_closed"], res["loops_rejected"]),
+                  (want["loops_closed"], want["loops_rejected"]),
+                  (res["loops_closed"], res["loops_rejected"])
+                  == (want["loops_closed"], want["loops_rejected"]))
+        lines.append(f"median {res['median_track_ms']:.3f} ms/frame, "
+                     f"{res['fps']:.3f} frames/s")
+        recs[name] = np.stack([r.Tcw for r in sys_.trajectory])
+    spread = float(np.max(np.linalg.norm(
+        recs["t200_a"][:, :3, 3] - recs["t200_b"][:, :3, 3], axis=1)))
+    kref = np.load(KITTI_REF)
+    for name, amap in (("kitti", False), ("kitti_async", True)):
+        zero_counts()
+        systems = []
+        res = rex.run_kitti(kitti_dir, EXP_DEPTH, async_mapping=amap,
+                            device="cuda", prewarm=EXP_KITTI_PREWARM,
+                            systems=systems)
+        launches[name] = read_counts(f"experiments {name}",
+                                     EXP_DEPTH + EXP_KITTI_PREWARM,
+                                     per_frame=2)
+        want, _, kfs = held(name, res, systems[-1], strict=False)
+        mode = "async" if amap else "sync"
+        witness = KITTI_WITNESS_KFS[mode]
+        if witness is not None:
+            check(name, "keyframes against the witness", kfs, list(witness),
+                  kfs == list(witness))
+        ate_band = kitti_bands(kref, mode)[1]
+        check(name, "ATE mm", round(res["ate_rmse"] * 1e3, 4),
+              f"{want['ate_rmse'] * 1e3:.4f}, noise band "
+              f"{ate_band * 1e3:.4f}; limit {KITTI_OWN_ATE_M * 1e3}",
+              res["ate_rmse"] < KITTI_OWN_ATE_M)
+        lines.append(f"median {res['median_track_ms']:.3f} ms/frame, "
+                     f"{res['fps']:.3f} frames/s")
+    print(f"experiments [{card}]: {len(frames)} TUM frames (decoded in "
+          f"{load_s:.1f} s), {EXP_DEPTH} KITTI pairs; t200_a / t200_b "
+          f"records at most {spread * 1e3:.6f} mm apart; "
+          + "; ".join(lines), flush=True)
+    if bad:
+        fail("experiments: " + "; ".join(bad))
+    return launches
+
+
+def phase_train_vocab(card):
+    """scripts/train_vocab_torch.py at full size: its harvest on the card
+    (10 scenes x 8 poses of loop_trajectory, one orb_describe per render)
+    against the reference's CPU harvest (vocab_train.npz): at most
+    VOCAB_DESC_DIFF of the rows may differ (orb_describe's stated
+    tolerance: the rotation bins agree for >= 99.9% of keypoints; the
+    port's CPU harvest itself parts from the reference's in 20 of its
+    67,246 rows, keypoints on a bin boundary or the angle's stability
+    gate). Then the host training on the reference's descriptors, byte
+    for byte the reference's file (its sha256); and on the card's own,
+    its file's sha256 printed beside it (byte-equal only when no row
+    differs, and then held)."""
+    import hashlib
+    tv = script_module("train_vocab_torch")
+    ref = np.load(VOCAB_REF)
+    zero_counts()
+    t0 = time.perf_counter()
+    descs = tv.harvest(device="cuda", log=lambda *a: None)
+    harvest_s = time.perf_counter() - t0
+    launches = counts_now()
+    if launches != {"extract_patches": 0, "orb_describe": 80}:
+        fail(f"train_vocab: kernel launches {launches}, expected 80 "
+             f"orb_describe")
+    want = ref["full.desc"]
+    if descs.shape != want.shape:
+        fail(f"train_vocab: {descs.shape[0]} descriptors, the reference "
+             f"{want.shape[0]}")
+    n_diff = int(np.any(descs != want, axis=1).sum())
+    # keypoints of equal response come out of the top-k in either order:
+    # the rows of the card's harvest missing from the reference's multiset
+    from collections import Counter
+    n_set = sum((Counter(map(bytes, descs))
+                 - Counter(map(bytes, want))).values())
+    os.makedirs(tools_root(), exist_ok=True)
+
+    def trained(d, name):
+        t0 = time.perf_counter()
+        voc = tv.train(d)
+        path = os.path.join(tools_root(), name)
+        voc.save_dbow2_text(path)
+        return (hashlib.sha256(open(path, "rb").read()).hexdigest(),
+                time.perf_counter() - t0, voc.n_words)
+    sha_ref_descs, _, _ = trained(want, "vocab_reference_descs.txt")
+    sha, train_s, n_words = trained(descs, "vocab_synth.txt")
+    want_sha = str(ref["full.sha256"])
+    print(f"train_vocab [{card}]: {descs.shape[0]} descriptors harvested "
+          f"in {harvest_s:.1f} s, {n_diff} rows differ from the reference "
+          f"harvest's (limit {VOCAB_DESC_DIFF}; {n_set} not in it at any "
+          f"row); {n_words} words trained in "
+          f"{train_s:.1f} s; the file from the reference's descriptors "
+          f"{sha_ref_descs} (the reference CPU run's {want_sha}: equal "
+          f"{sha_ref_descs == want_sha}); from the card's {sha} (equal "
+          f"{sha == want_sha}); the committed vocab_synth.txt "
+          f"{str(ref['committed.sha256'])}; launches {launches}",
+          flush=True)
+    if n_diff > VOCAB_DESC_DIFF:
+        fail(f"train_vocab: {n_diff} descriptor rows differ from the "
+             f"reference's (limit {VOCAB_DESC_DIFF})")
+    if sha_ref_descs != want_sha:
+        fail("train_vocab: the training on the reference's descriptors "
+             "differs from the reference's file")
+    if n_diff == 0 and sha != want_sha:
+        fail("train_vocab: equal descriptors, another vocabulary")
+    return launches, {"harvest_s": harvest_s, "train_s": train_s,
+                      "desc_rows_differ": n_diff}
+
+
+def brief_tie(sel, chosen, at, want_tests):
+    """The first row where chosen parts from want_tests, and the margin
+    there: the smaller distance from the threshold of the two tests'
+    largest |correlation| with the rows before (None, None if equal)."""
+    differ = np.flatnonzero(np.asarray(chosen) != np.asarray(want_tests))
+    if differ.size == 0:
+        return None, None
+    k = int(differ[0])
+    if k == 0:
+        return k, float("inf")
+    r = sel.corr([chosen[k], want_tests[k]], chosen[:k]).max(1)
+    return k, float(np.min(np.abs(r - at[k])))
+
+
+def phase_train_brief(card):
+    """scripts/train_brief_pattern_torch.py at full size on the card: the
+    harvest (per render one orb_describe, then extract_patches on each
+    level's blurred image at the keypoints' windows, up to 8 launches per
+    render; each launch held bit-exact to extract_patches_ref on the same
+    inputs, the launches counted and the per-level counts beside the
+    reference's harvest), then the selection over the 50,000 patches (the
+    bits of ~60.7k tests kept centred in f32 on the card), its quality
+    line and the pattern against the committed brief_pattern.npy
+    (printed). Then the selection held row for row to the reference's
+    main() on brief_cases.integer_corpus(BRIEF_CARD_CORPUS), in the
+    reference's scan order: where a row parts, some test's |correlation|
+    must lie within BRIEF_TIE of the threshold; the quality within
+    BRIEF_QUALITY_TOL. Returns the launches, the timings and
+    extract_patches' row at the harvest's shapes (one render's launches)."""
+    import torch
+    from object_slam_tpu_torch.ops import patch as patch_mod
+    tb = script_module("train_brief_pattern_torch")
+    sys.path.insert(0, FIXTURES)
+    import brief_cases
+    ref = np.load(BRIEF_REF)
+    zero_counts()
+    calls = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    patches = tb.harvest_patches(device="cuda", levels_out=calls)
+    torch.cuda.synchronize()
+    harvest_s = time.perf_counter() - t0
+    launches = counts_now()
+    renders = sum(1 for b, _, _, _ in calls if b.shape[0] == 480)
+    if launches != {"extract_patches": len(calls), "orb_describe": renders} \
+            or not 0 < len(calls) <= 8 * renders:
+        fail(f"train_brief: kernel launches {launches} for {len(calls)} "
+             f"extract calls over {renders} renders")
+    for blurred, ys, xs, p in calls:
+        if not torch.equal(p, patch_mod.extract_patches_ref(blurred, ys, xs)):
+            fail("train_brief: an extract_patches launch differs from its "
+                 "plain version")
+    got_calls = [[int(b.shape[0]), int(y.shape[0])] for b, y, _, _ in calls]
+    ref_calls = ref["full.calls"].tolist()
+    sums = patches.reshape(patches.shape[0], -1).sum(1).cpu().numpy()
+    rel = (np.abs(sums - ref["full.sums"]) / np.abs(ref["full.sums"])
+           if sums.shape == ref["full.sums"].shape else np.array([np.inf]))
+    # extract_patches at these shapes: the first render's launches
+    first = [(b, y, x) for b, y, x, _ in calls[:next(
+        (i for i, c in enumerate(calls[1:], 1) if c[0].shape[0] == 480),
+        len(calls))]]
+    row = patch_row(first, "the BRIEF harvest, one render")
+    row["windows_per_render"] = sum(int(y.shape[0]) for _, y, _ in first)
+    # the selection at full size
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sel = tb.TestSelector(patches)
+    torch.cuda.synchronize()
+    bits_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    relax = []
+    chosen, at = sel.select(log=relax.append)
+    torch.cuda.synchronize()
+    select_s = time.perf_counter() - t0
+    pattern = sel.pattern(chosen)
+    q = sel.quality(chosen)
+    committed = np.load(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "object_slam_tpu_torch",
+        "features", "brief_pattern.npy"))
+    same_rows = int(np.sum(np.all(pattern == committed, axis=1)))
+    c_tests = sel.pattern_tests(committed)
+    q_committed = sel.quality(c_tests) if (c_tests >= 0).all() else None
+    bits_bytes = sel.T * sel.n * 4
+    del sel
+    # the exact hold on the integer corpus
+    corpus = torch.from_numpy(brief_cases.integer_corpus(
+        BRIEF_CARD_CORPUS)).cuda()
+    sel8 = tb.TestSelector(corpus)
+    ref_order = ref[f"corpus{BRIEF_CARD_CORPUS}.order"]
+    own_order = bool(np.array_equal(sel8.order(), ref_order))
+    t0 = time.perf_counter()
+    chosen8, at8 = sel8.select(order=ref_order, log=lambda *a: None)
+    torch.cuda.synchronize()
+    select8_s = time.perf_counter() - t0
+    want8 = ref[f"corpus{BRIEF_CARD_CORPUS}.pattern"]
+    k, margin = brief_tie(sel8, chosen8, at8, sel8.pattern_tests(want8))
+    q8 = np.asarray(sel8.quality(chosen8))
+    q8_ref = ref[f"corpus{BRIEF_CARD_CORPUS}.quality"]
+    print(f"train_brief [{card}]: harvest {patches.shape[0]} patches from "
+          f"{renders} renders in {harvest_s:.1f} s, {len(calls)} "
+          f"extract_patches launches, each bit-exact to its plain version; "
+          f"per-level counts equal to the reference harvest's "
+          f"{got_calls == ref_calls} ({len(got_calls)} / {len(ref_calls)} "
+          f"calls); patch sums against the reference's: max relative "
+          f"{float(rel.max()):.3e}, median {float(np.median(rel)):.3e}; "
+          f"selection over {tb.N_CANDIDATES} draws -> {len(sel8.ia)} tests x "
+          f"{patches.shape[0]} patches ({bits_bytes / 2 ** 30:.2f} GiB of "
+          f"centred f32 bits) built in {bits_s:.2f} s, selected in "
+          f"{select_s:.2f} s ({relax}); learned: |mean-0.5| avg "
+          f"{q[0]:.6f}, corr avg {q[1]:.6f} / p95 {q[2]:.6f}; the committed "
+          f"pattern on this corpus "
+          f"{'not a candidate set' if q_committed is None else [round(x, 6) for x in q_committed]}"
+          f", {same_rows} of 256 rows equal; integer corpus "
+          f"{BRIEF_CARD_CORPUS}: own scan order equal to the reference's "
+          f"{own_order}, selected in {select8_s:.2f} s, first row parting "
+          f"from the reference's {k} (margin {margin}), quality "
+          f"{q8.tolist()} against {q8_ref.tolist()}; launches {launches}",
+          flush=True)
+    if pattern.shape != (256, 4) or len(set(map(int, chosen))) != 256:
+        fail("train_brief: the learned pattern is not 256 distinct tests")
+    if k is not None and not margin <= BRIEF_TIE:
+        fail(f"train_brief: row {k} parts from the reference's with margin "
+             f"{margin} > {BRIEF_TIE}")
+    if not np.all(np.abs(q8 - q8_ref) <= BRIEF_QUALITY_TOL):
+        fail(f"train_brief: quality {q8.tolist()} against {q8_ref.tolist()}")
+    row["launches"] = launches["extract_patches"]
+    return launches, {"harvest_s": harvest_s, "bits_s": bits_s,
+                      "select_s": select_s, "select8_s": select8_s,
+                      "bits_bytes": bits_bytes}, row
+
+
+def tools_child_main(out_json: str):
+    """The third process: the generators, the battery, the vocabulary
+    trainer and the BRIEF-pattern learner on the card; the launches by
+    phase, the phase seconds, the timings and extract_patches' row at the
+    harvest's shapes written to out_json."""
+    import torch
+    from object_slam_tpu_torch.ops import build
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    build.load_all(KERNELS)
+    card = card_line()
+    by_phase = {}
+    root = phase_timed("synth_dirs", phase_synth_dirs, card)
+    exp = phase_timed("experiments", phase_experiments, root, card)
+    by_phase.update({f"experiments_{k}": v for k, v in exp.items()})
+    by_phase["train_vocab"], vocab_s = phase_timed(
+        "train_vocab", phase_train_vocab, card)
+    by_phase["train_brief"], brief_s, brief_row = phase_timed(
+        "train_brief", phase_train_brief, card)
+    with open(out_json, "w") as f:
+        json.dump({"by_phase": by_phase, "phase_s": PHASE_S,
+                   "vocab_s": vocab_s, "brief_s": brief_s,
+                   "brief_row": brief_row}, f)
+
+
 PHASE_S = {}
 MONO_ARG = "--mono-phases"
 
@@ -3457,42 +3931,43 @@ def mono_child_main(out_json: str):
                    "kitti_row": kitti_row}, f)
 
 
-def start_mono_child():
-    """Start mono_child_main in a second process (the card is idle most of
-    the time in every phase: the port is bound by host dispatch), its
-    output to build/chip_smoke_mono.log; it is killed if this process
-    exits first."""
+def start_child(arg: str = MONO_ARG, stem: str = "chip_smoke_mono"):
+    """Start this script with ``arg`` (mono_child_main or
+    tools_child_main) in another process on the same card (the card is
+    idle most of the time in every phase: the port is bound by host
+    dispatch), its output to build/<stem>.log; it is killed if this
+    process exits first."""
     import atexit
     root = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(os.path.join(root, "build"), exist_ok=True)
-    log = os.path.join(root, "build", "chip_smoke_mono.log")
-    out = os.path.join(root, "build", "chip_smoke_mono.json")
+    log = os.path.join(root, "build", stem + ".log")
+    out = os.path.join(root, "build", stem + ".json")
     if os.path.exists(out):
         os.remove(out)
     with open(log, "w") as f:
         proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                 MONO_ARG, out], stdout=f,
+                                 arg, out], stdout=f,
                                 stderr=subprocess.STDOUT)
     atexit.register(lambda: proc.poll() is None and proc.kill())
     return proc, log, out
 
 
-def finish_mono_child(child, by_phase):
-    """Wait for the second process, print its output, fail with it, and
-    merge its launches and phase seconds."""
+def finish_child(child, by_phase, what: str, prefix: str):
+    """Wait for a process of start_child, print its output, fail with it,
+    and merge its launches and phase seconds (under prefix)."""
     proc, log, out = child
     t0 = time.perf_counter()
     rc = proc.wait()
     waited = time.perf_counter() - t0
-    print(f"--- the second process (mono, localization, checkpoint, EuRoC "
-          f"driver, KITTI; waited {waited:.1f} s for it) ---", flush=True)
+    print(f"--- the {what} process; waited {waited:.1f} s for it ---",
+          flush=True)
     print(open(log).read(), end="", flush=True)
     print("--- end of that process ---", flush=True)
     if rc != 0 or not os.path.exists(out):
-        fail(f"the second process's phases failed (exit code {rc})")
+        fail(f"the {what} process's phases failed (exit code {rc})")
     res = json.load(open(out))
     by_phase.update(res["by_phase"])
-    PHASE_S.update({"second." + k: v for k, v in res["phase_s"].items()})
+    PHASE_S.update({prefix + k: v for k, v in res["phase_s"].items()})
     return res
 
 
@@ -3525,6 +4000,8 @@ T_START = time.perf_counter()
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == MONO_ARG:
         return mono_child_main(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == TOOLS_ARG:
+        return tools_child_main(sys.argv[2])
     try:
         import torch
     except ImportError:
@@ -3546,8 +4023,10 @@ def main():
     print(f"kernels {', '.join(KERNELS)} built and loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     # mono at EuRoC width, localization mode, checkpoints, the EuRoC driver
-    # and KITTI run in a second process beside this one's phases
-    child = start_mono_child()
+    # and KITTI run in a second process beside this one's phases, the
+    # offline tools in a third
+    child = start_child()
+    tools = start_child(TOOLS_ARG, "chip_smoke_tools")
 
     cfg = tum_cfg()
     t0 = time.perf_counter()
@@ -3594,10 +4073,22 @@ def main():
     by_phase["tum_driver_loop"] = phase_timed(
         "tum_driver_loop", phase_tum, main_cfg, poses, frames, sems, card,
         loop=True)
-    rows[1]["kitti"] = finish_mono_child(child, by_phase)["kitti_row"]
+    rows[1]["kitti"] = finish_child(
+        child, by_phase, "second (mono, localization, checkpoint, EuRoC "
+        "driver, KITTI)", "second.")["kitti_row"]
+    tres = finish_child(tools, by_phase, "third (generators, experiment "
+                        "battery, vocabulary and BRIEF trainers)", "third.")
+    # extract_patches runs on the BRIEF-pattern learner's path: its row
+    # holds that path's launches and its numbers at the harvest's shapes
+    # (one render's launches); the main-path frame's 16 windows per level
+    # stay beside them. orb_describe's launches are the main path's
+    rows[0]["tum_frame"] = {k: rows[0][k] for k in (
+        "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+        "library_ms")}
+    rows[0].update(tres["brief_row"])
+    rows[1]["launches"] = by_phase["bench_host_in_the_loop"]["orb_describe"]
+    rows[1]["launches_per_frame"] = rows[1]["launches"] // N_FRAMES
     for row in rows:
-        row["launches"] = by_phase["bench_host_in_the_loop"][row["name"]]
-        row["launches_per_frame"] = row["launches"] // N_FRAMES
         row["launches_by_phase"] = {k: v[row["name"]]
                                     for k, v in by_phase.items()}
         timed = ("ms", "device_ms", "plain_ms", "bound_ms") + \
@@ -3605,7 +4096,7 @@ def main():
         for k in timed:
             if not (isinstance(row[k], float) and math.isfinite(row[k])):
                 fail(f"{row['name']} row field {k} is not a finite number")
-        for shape in ("kitti", "euroc"):
+        for shape in ("kitti", "euroc", "tum_frame"):
             for k, v in row.get(shape, {}).items():
                 if k != "bound_by" and not (isinstance(v, float)
                                             and math.isfinite(v)):

@@ -1,8 +1,9 @@
 """Synthetic RGB-D / stereo scene generator for tests and benchmarks.
 
 A numpy copy of the parts of object_slam_tpu/datasets/synthetic.py that
-the port's tests and chip_smoke.py use (scene, RGB-D and stereo render,
-detection slab, the orbit and drive trajectories, the street canyon of
+the port's tests, scripts and chip_smoke.py use (scene, RGB-D and stereo
+render, detection slab, the mask degradation, the orbit, loop and drive
+trajectories, the street canyon of
 scripts/make_synth_kitti.py and its rendering by a process pool), so the
 port renders the same frames from
 the same seed without importing the JAX package.
@@ -539,6 +540,37 @@ def drive_trajectory(n: int, speed: float = 0.8, yaw_rate: float = 0.002,
     return poses
 
 
+def degrade_masks(M, V, rng, shift=2, hole_frac=0.02, block=8):
+    """YOLACT-raggedness proxy for the exact synthetic masks (the
+    reference's, draw for draw from the same RandomState): block-wise
+    random boundary erosion / dilation (+-``shift`` px) and salt holes.
+    M [I, H, W] bool, V [I] valid. Returns (masks, bboxes [I, 4] f32
+    recomputed from the noisy masks, (x, y, w, h) with w, h inclusive)."""
+    I, H, W = M.shape
+    out = np.zeros_like(M)
+    bboxes = np.zeros((I, 4), np.float32)
+    for i in range(I):
+        m = M[i]
+        if not V[i] or not m.any():
+            out[i] = m
+            continue
+        er = m.copy()
+        di = m.copy()
+        for ax, s in ((0, shift), (0, -shift), (1, shift), (1, -shift)):
+            er &= np.roll(m, s, ax)
+            di |= np.roll(m, s, ax)
+        sel = rng.rand(H // block + 1, W // block + 1)
+        sel = np.kron(sel, np.ones((block, block)))[:H, :W]
+        n = np.where(sel < 0.33, er, np.where(sel > 0.66, di, m))
+        n &= ~(rng.rand(H, W) < hole_frac)
+        out[i] = n
+        ys, xs = np.nonzero(n)
+        if len(xs):
+            bboxes[i] = [xs.min(), ys.min(),
+                         xs.max() - xs.min() + 1, ys.max() - ys.min() + 1]
+    return out, bboxes
+
+
 def street_scene(cfg, n_frames: int, speed: float = 0.8, seed: int = 5,
                  n_objects: int = 6):
     """scripts/make_synth_kitti.py's street canyon for an n_frames drive:
@@ -558,8 +590,9 @@ def street_scene(cfg, n_frames: int, speed: float = 0.8, seed: int = 5,
 _STREET_WORKER = {}
 
 
-def _street_worker_init(cfg, n_frames: int):
-    _STREET_WORKER["scene"] = street_scene(cfg, n_frames)[0]
+def _street_worker_init(cfg, n_frames: int, speed: float = 0.8,
+                        seed: int = 5):
+    _STREET_WORKER["scene"] = street_scene(cfg, n_frames, speed, seed)[0]
     _STREET_WORKER["instances"] = cfg.semantic.max_instances
 
 
@@ -572,20 +605,21 @@ def _street_render(T):
 
 
 def render_street(cfg, n_frames: int, first: int = 0,
-                  last: int | None = None, workers: int | None = None):
-    """Frames first..last-1 of street_scene(cfg, n_frames)'s drive as
-    KITTI's PNGs hold them: (poses, [(gray_l u8, gray_r u8, the left
-    view's sem_arrays slab)], seconds). A pool of spawned processes
+                  last: int | None = None, workers: int | None = None,
+                  speed: float = 0.8, seed: int = 5):
+    """Frames first..last-1 of street_scene(cfg, n_frames, speed, seed)'s
+    drive as KITTI's PNGs hold them: (poses, [(gray_l u8, gray_r u8, the
+    left view's sem_arrays slab)], seconds). A pool of spawned processes
     renders them (each builds the scene from the seed), as
     scripts/make_synth_kitti.py does."""
     import multiprocessing as mp
     import time
-    poses = drive_trajectory(n_frames)[first:last]
+    poses = drive_trajectory(n_frames, speed=speed)[first:last]
     workers = workers or min(os.cpu_count() or 1, 8)
     t0 = time.perf_counter()
     with mp.get_context("spawn").Pool(
             workers, initializer=_street_worker_init,
-            initargs=(cfg, n_frames)) as pool:
+            initargs=(cfg, n_frames, speed, seed)) as pool:
         frames = pool.map(_street_render, poses, chunksize=1)
     return poses, frames, time.perf_counter() - t0
 

@@ -60,6 +60,19 @@ def load_frame_raw(frame: TumFrame):
                         frame.depth_path)
 
 
+def load_frame_arrays(frame: TumFrame, depth_factor: float):
+    """(gray [H, W] f32, depth [H, W] f32 metric, rgb [H, W, 3] f32), as
+    the reference's loader returns them: a gray image becomes three equal
+    channels, gray is rgb @ (0.299, 0.587, 0.114) in f32, depth the raw
+    values over depth_factor."""
+    rgb = read_png(frame.rgb_path).astype(np.float32)
+    if rgb.ndim == 2:
+        rgb = np.stack([rgb] * 3, -1)
+    gray = rgb @ np.array([0.299, 0.587, 0.114], np.float32)
+    d = read_png(frame.depth_path).astype(np.float32) / depth_factor
+    return gray, d, rgb
+
+
 def frame_arrays(rgb: np.ndarray, depth: np.ndarray, depth_path: str = ""):
     """Decoded rgb and depth images (read_png's, or the native
     prefetcher's) -> load_frame_raw's (rgb [H, W, 3] u8, depth u16)."""

@@ -67,12 +67,11 @@ class PnPResult(NamedTuple):
     ok: torch.Tensor
 
 
-def pnp_ransac_sets(idx, K: Intrinsics, pw, uv, valid,
-                    chi2_th: float = 5.991, min_inliers: int = 10,
-                    inv_sigma2=None) -> PnPResult:
-    """The hypotheses of the [T, 6] index sets ``idx``, scored against pw
-    [N, 3] world points and uv [N, 2] undistorted pixels (valid [N]); the
-    best one polished. ok=False if it has < min_inliers."""
+def hypothesis_scores(idx, K: Intrinsics, pw, uv, valid,
+                      chi2_th: float = 5.991, inv_sigma2=None):
+    """The DLT hypotheses of the [T, 6] index sets ``idx`` and their
+    scores against pw [N, 3] world points and uv [N, 2] undistorted pixels
+    (valid [N]): (T [T, 4, 4], inliers [T, N], scores [T] int32)."""
     if inv_sigma2 is None:
         inv_sigma2 = torch.ones(uv.shape[0], dtype=uv.dtype, device=uv.device)
     xn = torch.stack([(uv[..., 0] - K.cx) / K.fx,
@@ -88,7 +87,19 @@ def pnp_ransac_sets(idx, K: Intrinsics, pw, uv, valid,
     chi2 = ((u - uv[None, :, 0]) ** 2
             + (v - uv[None, :, 1]) ** 2) * inv_sigma2[None, :]
     inl = (chi2 < chi2_th) & (z > 0) & valid[None, :]
-    scores = torch.sum(inl.to(torch.int32), dim=-1)
+    return T, inl, torch.sum(inl.to(torch.int32), dim=-1)
+
+
+def pnp_ransac_sets(idx, K: Intrinsics, pw, uv, valid,
+                    chi2_th: float = 5.991, min_inliers: int = 10,
+                    inv_sigma2=None) -> PnPResult:
+    """The hypotheses of the [T, 6] index sets ``idx``, scored against pw
+    [N, 3] world points and uv [N, 2] undistorted pixels (valid [N]); the
+    best one polished. ok=False if it has < min_inliers."""
+    if inv_sigma2 is None:
+        inv_sigma2 = torch.ones(uv.shape[0], dtype=uv.dtype, device=uv.device)
+    T, inl, scores = hypothesis_scores(idx, K, pw, uv, valid, chi2_th,
+                                       inv_sigma2)
     best = torch.argmax(scores)          # the first maximum, as jnp.argmax
     T0, inl0 = T[best], inl[best]
 

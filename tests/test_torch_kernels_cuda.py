@@ -53,6 +53,29 @@ def test_patch_kernel_matches_plain(H, W, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("level", range(8))
+def test_patch_kernel_at_the_brief_harvest_shapes(level):
+    """The BRIEF-pattern learner's launches: a VGA pyramid level's blurred
+    image (480x640 down by 1.2 per level), the level's keypoint budget of
+    corners round(uv / scale) - 15 (their windows clamp at the borders)."""
+    _card()
+    h, w = pyr.level_shapes(480, 640, 8, 1.2)[level]
+    n = ex_mod._level_budgets(1000, 8, 1.2)[level]
+    rng = np.random.RandomState(level)
+    img = torch.from_numpy(rng.uniform(0, 255, (h, w)).astype(
+        np.float32)).cuda()
+    blurred = pyr.gaussian_blur(img).contiguous()
+    ys = torch.from_numpy(rng.randint(0, h, n).astype(np.int32) - 15).cuda()
+    xs = torch.from_numpy(rng.randint(0, w, n).astype(np.int32) - 15).cuda()
+    before = patch_mod.extract_patches.launches
+    got = patch_mod.extract_patches(blurred, ys, xs)
+    torch.cuda.synchronize()
+    assert patch_mod.extract_patches.launches == before + 1
+    assert got.shape == (n, 32, 32)
+    assert torch.equal(got, patch_mod.extract_patches_ref(blurred, ys, xs))
+
+
+@pytest.mark.cuda
 def test_patch_kernel_rejects_bad_inputs():
     _card()
     img, ys, xs = _inputs(1, 64, 64, 8)

@@ -272,6 +272,16 @@ def kitti_pass():
     return fx, maps, stages, prev
 
 
+def ba_spread(fx):
+    """The JAX local BA's own one-ulp spread about its recorded output:
+    the farthest keyframe move of its noise trials on the recording
+    machine and of its 16 trials rerun on a second one (make_reference.py
+    kitti_pass_noise; there the noise-free rerun itself lands
+    ba_rerun_kf_move away, as XLA:CPU sums in the order the compiling
+    machine picks)."""
+    return max(fx["ba_ulp_kf_move"].max(), fx["ba_ulp_kf_move_rerun"].max())
+
+
 @pytest.mark.parametrize("stage", ["cull_points", "triangulate", "fuse",
                                    "point_stats", "local_ba",
                                    "cull_keyframes"])
@@ -295,7 +305,7 @@ def test_kitti_pass_stage_matches_jax(kitti_pass, stage):
             kv = want["kf_valid"]
             move = np.linalg.norm(a[kv][:, :3, 3] - b[kv][:, :3, 3],
                                   axis=1).max()
-            limit = fx["ba_ulp_kf_move"].max() if stage == "local_ba" else 0
+            limit = ba_spread(fx) if stage == "local_ba" else 0
             assert move <= limit, (stage, move, limit)
         else:
             assert np.array_equal(a, b), (stage, f, int(np.sum(a != b)))

@@ -156,23 +156,34 @@ def test_replay_inputs_and_decisions(fx, replay):
     assert replay["inserts"] == want
 
 
+def _event_key(e):
+    return (e["q"], e["l"], e["accepted"], e.get("pre_gated", False))
+
+
 def test_replay_closes_the_loop_as_reference(fx, replay):
     """The same closure (q, l, accepted, pre-gated) on the same keyframe,
-    its numbers within 1e-3 relative (bend_deg 0.02 deg), and the Sim3
-    draws used one for one."""
+    its numbers within 1e-3 relative (bend_deg 0.02 deg) or within the
+    reference's own spread, whichever is wider: the farthest that the
+    reference's runs of these frames with one-ulp noise in every mapping
+    pass's and closure's input (loop_small.npz "noise_events",
+    make_reference.py loop_small_noise) land from it on the same closure;
+    and the Sim3 draws used one for one."""
     lc = replay["sys"].loop_closer
     ev_j = json.loads(str(fx["events"]))
-    assert [(e["q"], e["l"], e["accepted"], e.get("pre_gated", False))
-            for e in lc.events] == \
-        [(e["q"], e["l"], e["accepted"], e.get("pre_gated", False))
-         for e in ev_j]
+    assert [_event_key(e) for e in lc.events] == \
+        [_event_key(e) for e in ev_j]
     assert lc.n_loops_closed == int(fx["loops_closed"]) == 1
-    for et, ej in zip(lc.events, ev_j):
+    noise = [run for run in json.loads(str(fx["noise_events"]))
+             if [_event_key(e) for e in run] == [_event_key(e) for e in ev_j]]
+    assert noise, "no noise run of the reference closes the same loop"
+    for i, (et, ej) in enumerate(zip(lc.events, ev_j)):
         for k, v in ej.items():
             if k in ("wall_ms", "q", "l", "accepted", "pre_gated"):
                 continue
-            tol = 0.02 if k == "bend_deg" else 1e-6 + 1e-3 * abs(v)
-            assert abs(et[k] - v) <= tol, (k, et[k], v)
+            spread = max(abs(run[i][k] - v) for run in noise)
+            tol = max(0.02 if k == "bend_deg" else 1e-6 + 1e-3 * abs(v),
+                      spread)
+            assert abs(et[k] - v) <= tol, (k, et[k], v, spread)
     assert len(replay["draws"]) == len(fx["sim3_sets"]) - int(
         fx["state.sim3_sets_before"])
 

@@ -47,15 +47,28 @@ inputs and outputs are recorded here once and committed:
   run_sharded_global_ba on a 2-device CPU mesh;
 * ``batched.npz``: tests/test_batched.py's four sequences
   (make_sequence_state, seeds 0-3) through BatchedTracker.step, inputs and
-  outputs.
+  outputs;
+* ``pnp_cases.npz``: jepnp.pnp_ransac on pnp_cases.correspondences (its
+  sets, hypothesis scores and result); ``kitti_pass_noise`` adds 16
+  one-ulp trials of the JAX local BA rerun on this machine to
+  ``kitti_pass.npz``, ``loop_small_noise`` the closer events of four
+  one-ulp noise runs of the small circuit to ``loop_small.npz``;
+* the offline tools through scripts/'s own functions:
+  ``experiments.npz`` and ``experiments_tiny.npz`` (run_experiments.py's
+  variants on its generators' directories), ``vocab_train.npz``
+  (train_vocab.py), ``brief.npz`` (train_brief_pattern.py's harvest, and
+  its main() on brief_cases.integer_corpus with the save intercepted).
 
-Run from the repository root (all parts, or the ones named):
+Run from the repository root (the parts named; with no argument, the
+slices' parts listed in main()):
 
     python tests/torch_fixtures/make_reference.py [slice1] [objects]
         [tum_vga] [pipelined] [kidnap] [pipelined_tum_vga] [kidnap_tum_vga]
         [stereo] [kitti_stereo] [mono_small] [mono_euroc]
         [localization_small] [localization_tum_vga] [euroc_driver]
-        [parallel] [batched]
+        [parallel] [batched] [pnp_cases] [kitti_pass_noise]
+        [loop_small_noise[:noise<k>|:merge]] [experiments]
+        [experiments_tiny] [vocab] [brief]
 
 slice1, objects and tum_vga use ``pipelined_readback=False``. The rendered
 inputs' checksums are stored so that the tests can prove they re-render
@@ -2280,6 +2293,445 @@ def record_batched():
           f"{np.asarray(res.n_inliers).tolist()}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the parity tests that sit on near-ties: the JAX side recorded once, and
+# the reference's own one-ulp spread from more samples
+# ---------------------------------------------------------------------------
+
+OUT_PNP = os.path.join(HERE, "pnp_cases.npz")
+KITTI_PASS_NOISE_TRIALS = 16
+LOOP_SMALL_NOISE_RUNS = 4
+
+
+def record_pnp_cases():
+    """jepnp.pnp_ransac on pnp_cases.correspondences(seed) for each seed of
+    pnp_cases.SEEDS: its index sets (PRNGKey(seed)), every hypothesis's
+    score as pnp_ransac computes it, the winner and the polished result."""
+    from object_slam_tpu.solvers import epnp as jepnp
+    from object_slam_tpu.solvers import ransac as jransac
+    import pnp_cases
+    K = Intrinsics(**pnp_cases.TUM)
+    out = {}
+    for seed in pnp_cases.SEEDS:
+        pw, uv, valid, _, _ = pnp_cases.correspondences(seed)
+        key = jax.random.PRNGKey(seed)
+        pwj, uvj, vj = jnp.asarray(pw), jnp.asarray(uv), jnp.asarray(valid)
+        idx = jransac.sample_minimal_sets(key, pw.shape[0], vj, 256, 6)
+        res = jepnp.pnp_ransac(key, K, pwj, uvj, vj, min_inliers=25)
+        # the scores, as pnp_ransac computes them (epnp.py:80-92)
+        xn = jnp.stack([(uvj[..., 0] - K.cx) / K.fx,
+                        (uvj[..., 1] - K.cy) / K.fy], -1)
+        T = jepnp.dlt_pose(pwj[idx], xn[idx])
+        pc = jnp.einsum('tij,nj->tni', T[:, :3, :3], pwj) + T[:, None, :3, 3]
+        z = pc[..., 2]
+        u = K.fx * pc[..., 0] / jnp.maximum(z, 1e-6) + K.cx
+        v = K.fy * pc[..., 1] / jnp.maximum(z, 1e-6) + K.cy
+        chi2 = (u - uvj[None, :, 0]) ** 2 + (v - uvj[None, :, 1]) ** 2
+        scores = np.asarray(jnp.sum((chi2 < 5.991) & (z > 0) & vj[None, :],
+                                    axis=-1))
+        out.update({f"{seed}.idx": np.asarray(idx, np.int32),
+                    f"{seed}.scores": scores.astype(np.int32),
+                    f"{seed}.best": np.int32(np.argmax(scores)),
+                    f"{seed}.inliers": np.asarray(res.inliers),
+                    f"{seed}.n_inliers": np.int32(res.n_inliers),
+                    f"{seed}.ok": np.bool_(res.ok),
+                    f"{seed}.Tcw": np.asarray(res.Tcw, np.float32)})
+        print(f"pnp seed {seed}: best hypothesis {int(np.argmax(scores))} "
+              f"({int(scores.max())} inliers), polished "
+              f"{int(res.n_inliers)}", flush=True)
+    np.savez_compressed(OUT_PNP, **out)
+    print(f"wrote {OUT_PNP}: {os.path.getsize(OUT_PNP) / 1e3:.1f} kB",
+          flush=True)
+
+
+def record_kitti_pass_noise():
+    """The JAX local BA of kitti_pass.npz once more on its recorded input
+    (on this machine: how far from the recorded output it lands), then
+    KITTI_PASS_NOISE_TRIALS times with the points scaled by (1 + u) as
+    record_kitti_pass draws them (RandomState(0): the first
+    KITTI_PASS_TRIALS draws are its draws). Adds to kitti_pass.npz
+    "ba_rerun_kf_move" (the noise-free rerun's keyframe move) and
+    "ba_ulp_kf_move_rerun" (every trial's), both from the recorded
+    output: the reference's one-ulp spread on another machine, from more
+    samples; "ba_ulp_kf_move" (the recording machine's trials) stays."""
+    from object_slam_tpu.slam import local_mapping as jlm
+    from object_slam_tpu_torch import interop
+    fx = np.load(OUT_KITTI_PASS)
+    cfg = SlamConfig.kitti_stereo()
+    sys_ = SlamSystem(cfg, enable_objects=True, async_mapping=False)
+    base = {f: np.asarray(getattr(sys_.map, f)) for f in MapState._fields}
+    maps = interop.stage_maps(fx, base, fx["stages"].tolist())
+    ba_in, ba_out = maps["point_stats"], maps["local_ba"]
+    kf, fast = int(fx["kf"]), bool(fx["fast"])
+    J = lambda d: MapState(**{f: jnp.asarray(v) for f, v in d.items()})  # noqa: E731
+    W = jlm.covisibility(J(maps["in"]))[kf]
+    it1, it2 = cfg.mapping.ba_abort_iters if fast else (5, 10)
+
+    def ba(d):
+        t = jlm.run_local_ba(
+            m=J(d), K=sys_.K, kf_id=jnp.int32(kf),
+            window=cfg.caps.local_window_kf, n_fixed=8,
+            inv_sigma2_lvl=sys_.inv_sigma2, iters1=it1, iters2=it2,
+            pt_cap=cfg.caps.local_pt_cap, W_row=W,
+            obs_cap=cfg.caps.local_obs_per_kf)
+        return np.asarray(t.kf_pose)
+    kv = ba_out["kf_valid"]
+
+    def move(pose):
+        return float(np.max(np.linalg.norm(
+            pose[kv][:, :3, 3] - ba_out["kf_pose"][kv][:, :3, 3], axis=1)))
+    again = move(ba(ba_in))
+    rng = np.random.RandomState(0)
+    moves = []
+    for _ in range(KITTI_PASS_NOISE_TRIALS):
+        d = dict(ba_in)
+        d["pt_xyz"] = (ba_in["pt_xyz"] * (1.0 + rng.uniform(
+            -6e-8, 6e-8, ba_in["pt_xyz"].shape))).astype(np.float32)
+        moves.append(move(ba(d)))
+        print(f"kitti pass noise trial {len(moves)}: {moves[-1] * 1e3:.4f} "
+              f"mm", flush=True)
+    old = fx["ba_ulp_kf_move"]
+    print(f"kitti pass: the JAX BA on its recorded input lands "
+          f"{again * 1e3:.4f} mm from the recorded output on this machine; "
+          f"its first {len(old)} noise trials read "
+          f"{[round(x * 1e3, 4) for x in moves[:len(old)]]} mm (recorded "
+          f"{[round(x * 1e3, 4) for x in old]}); all "
+          f"{[round(x * 1e3, 4) for x in moves]} mm", flush=True)
+    out = {k: fx[k] for k in fx.files}
+    out["ba_ulp_kf_move_rerun"] = np.asarray(moves)
+    out["ba_rerun_kf_move"] = np.float64(again)
+    np.savez_compressed(OUT_KITTI_PASS, **out)
+    print(f"wrote {OUT_KITTI_PASS}: "
+          f"{os.path.getsize(OUT_KITTI_PASS) / 1e3:.1f} kB", flush=True)
+
+
+def record_loop_small_noise(part):
+    """part "noise<k>": the small circuit as record_loop_small runs it,
+    with one-ulp noise (seed k) in every local-mapping pass's and every
+    closure's input points from the frame after the replay's start
+    (loop_small.npz "start") on: the reference under another rounding of
+    the frames the port replays. Writes build/loop_small_noise/<part>.npz.
+    Part "merge" adds their closer events to loop_small.npz as
+    "noise_events" (a JSON list, one event list per run)."""
+    parts_dir = os.path.join(HERE, "..", "..", "build", "loop_small_noise")
+    if part == "merge":
+        fx = np.load(OUT_LOOP_SMALL)
+        runs = [json.loads(str(np.load(os.path.join(
+            parts_dir, f"noise{k}.npz"))["events"]))
+            for k in range(LOOP_SMALL_NOISE_RUNS)]
+        out = {k: fx[k] for k in fx.files}
+        out["noise_events"] = np.asarray(json.dumps(runs))
+        np.savez_compressed(OUT_LOOP_SMALL, **out)
+        print(f"loop small noise events {runs}; wrote {OUT_LOOP_SMALL}: "
+              f"{os.path.getsize(OUT_LOOP_SMALL) / 1e3:.1f} kB", flush=True)
+        return
+    seed = int(part[len("noise"):])
+    start = int(np.load(OUT_LOOP_SMALL)["start"])
+    cfg = loop_small_cfg()
+
+    def add_noise(sys_):
+        ulp_noise(sys_, 100 + seed)
+        rng = np.random.RandomState(200 + seed)
+        lc = sys_.loop_closer
+        on_kf = lc.on_keyframe
+        lc.on_keyframe = lambda m, kf: on_kf(_noisy(m, rng), kf)
+        return {}
+    res, _, _ = run_loop(cfg, loop_scene(cfg), loop_poses(LOOP_SMALL_FRAMES),
+                         objects=False, blob=False, capture=start,
+                         on_capture=add_noise, tag=f"loop small {part}")
+    os.makedirs(parts_dir, exist_ok=True)
+    np.savez_compressed(os.path.join(parts_dir, part + ".npz"),
+                        events=res["events"],
+                        insert_frames=res["insert_frames"])
+
+
+# ---------------------------------------------------------------------------
+# the offline tools: the experiment battery, the vocabulary trainer and the
+# BRIEF-pattern learner of scripts/, run through their own functions
+# ---------------------------------------------------------------------------
+
+OUT_EXPERIMENTS = os.path.join(HERE, "experiments.npz")
+# the battery's directories (chip_smoke.py writes the same with the port's
+# generators) and its depth
+EXP_TUM_FRAMES = 40
+EXP_KITTI_FRAMES = 24
+EXP_DEPTH = 24
+
+
+def load_script(name):
+    """scripts/<name>.py as a module (its main() is not run)."""
+    import importlib.util
+    path = os.path.join(HERE, "..", "..", "scripts", name + ".py")
+    spec = importlib.util.spec_from_file_location("ref_" + name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def make_dirs(root, n_tum=EXP_TUM_FRAMES, n_kitti=EXP_KITTI_FRAMES):
+    """scripts/make_synth_tum.py --frames n_tum and make_synth_kitti.py
+    --frames n_kitti under root (tum/, kitti/)."""
+    import subprocess
+    for script, sub, n in (("make_synth_tum", "tum", n_tum),
+                           ("make_synth_kitti", "kitti", n_kitti)):
+        subprocess.run([sys.executable, os.path.join(
+            HERE, "..", "..", "scripts", script + ".py"), "--out",
+            os.path.join(root, sub), "--frames", str(n)], check=True)
+
+
+def synth_digests(root):
+    """{path under root: sha256} of every file the generators wrote under
+    root: a PNG's decoded array (PIL; dtype, shape and bytes), any other
+    file's bytes."""
+    import hashlib
+    from PIL import Image
+    out = {}
+    for sub in ("tum", "kitti"):
+        for dirpath, _, files in os.walk(os.path.join(root, sub)):
+            for f in files:
+                path = os.path.join(dirpath, f)
+                if f.endswith(".png"):
+                    a = np.asarray(Image.open(path))
+                    data = f"{a.dtype.str}{a.shape}".encode() + a.tobytes()
+                else:
+                    data = open(path, "rb").read()
+                out[os.path.relpath(path, root)] = hashlib.sha256(
+                    data).hexdigest()
+    return out
+
+
+def record_runs(runs):
+    """Each (name, fn) of runs: fn() runs one of scripts/run_experiments.py's
+    variants and returns its result JSON; kept with every frame's tracked
+    flag and the frames of the valid keyframes of the last SlamSystem it
+    built (the class is wrapped while they run)."""
+    import object_slam_tpu.slam.system as jsys
+    made, out = [], {}
+
+    class Recorded(SlamSystem):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+    jsys.SlamSystem = Recorded
+    try:
+        for name, fn in runs:
+            res = fn()
+            s = made[-1]
+            out[f"{name}.json"] = np.asarray(json.dumps(res))
+            out[f"{name}.tracked"] = np.asarray([r.tracked
+                                                 for r in s.trajectory])
+            kv = np.asarray(s.map.kf_valid)
+            out[f"{name}.kf_frames"] = np.asarray(
+                s.map.kf_frame_id)[kv].astype(np.int32)
+            print(name, json.dumps(res)[:400], flush=True)
+    finally:
+        jsys.SlamSystem = SlamSystem
+    return out
+
+
+OUT_EXPERIMENTS_TINY = os.path.join(HERE, "experiments_tiny.npz")
+# tests/test_torch_experiments.py's directories and variants
+TINY_TUM_FRAMES = 4
+TINY_KITTI_FRAMES = 3
+TINY_TUM_VARIANTS = ("t200_a", "t200_noobj_sync")
+
+
+def record_experiments_tiny():
+    """scripts/run_experiments.py's run_tum_variant (TINY_TUM_VARIANTS) on
+    a make_synth_tum.py directory of TINY_TUM_FRAMES frames and run_kitti
+    (inline mapping) on a make_synth_kitti.py one of TINY_KITTI_FRAMES,
+    each kept by record_runs."""
+    root = os.path.join(HERE, "..", "..", "build", "experiments_tiny")
+    make_dirs(root, TINY_TUM_FRAMES, TINY_KITTI_FRAMES)
+    ex = load_script("run_experiments")
+    cfg = SlamConfig.tum_rgbd()
+    tum_dir = os.path.join(root, "tum")
+    metas, frames = ex.load_tum_frames(tum_dir, cfg)
+    kw = {"t200_a": dict(enable_objects=True, async_mapping=False),
+          "t200_noobj_sync": dict(enable_objects=False, async_mapping=False)}
+    runs = [(name, lambda k=kw[name]: ex.run_tum_variant(
+        tum_dir, cfg, frames, metas, **k)) for name in TINY_TUM_VARIANTS]
+    runs.append(("kitti", lambda: ex.run_kitti(os.path.join(root, "kitti"))))
+    out = record_runs(runs)
+    np.savez_compressed(OUT_EXPERIMENTS_TINY, **out)
+    print(f"wrote {OUT_EXPERIMENTS_TINY}: "
+          f"{os.path.getsize(OUT_EXPERIMENTS_TINY) / 1e3:.1f} kB", flush=True)
+
+
+def record_experiments():
+    """scripts/run_experiments.py's functions on the directories its
+    generators write (make_dirs, under build/experiments/): each TUM
+    variant of its list over the first EXP_DEPTH frames, and run_kitti
+    over EXP_DEPTH frames inline and async (after its 12-frame scratch
+    prewarm, whose system is thrown away), each kept by record_runs; and
+    the directories' synth_digests."""
+    root = os.path.join(HERE, "..", "..", "build", "experiments")
+    make_dirs(root)
+    ex = load_script("run_experiments")
+    cfg = SlamConfig.tum_rgbd()
+    tum_dir = os.path.join(root, "tum")
+    metas, frames = ex.load_tum_frames(tum_dir, cfg, EXP_DEPTH)
+    cfg_semoff = cfg.replace(objects=dataclasses.replace(
+        cfg.objects, semopt_enabled=False))
+    # run_experiments.main()'s variant list
+    variants = [
+        ("t200_a", cfg, dict(enable_objects=True, async_mapping=False)),
+        ("t200_b", cfg, dict(enable_objects=True, async_mapping=False)),
+        ("t200_noobj_sync", cfg,
+         dict(enable_objects=False, async_mapping=False)),
+        ("t200_semopt_off", cfg_semoff,
+         dict(enable_objects=True, async_mapping=False)),
+        ("t200_async", cfg, dict(enable_objects=True, async_mapping=True)),
+        ("t200_loop", cfg,
+         dict(enable_objects=True, async_mapping=False, enable_loop=True))]
+    runs = [(name, lambda c=vcfg, k=kw: ex.run_tum_variant(
+        tum_dir, c, frames, metas, **k)) for name, vcfg, kw in variants]
+    kitti_dir = os.path.join(root, "kitti")
+    runs += [(name, lambda a=amap: ex.run_kitti(kitti_dir, EXP_DEPTH,
+                                                async_mapping=a))
+             for name, amap in (("kitti", False), ("kitti_async", True))]
+    out = record_runs(runs)
+    out["synth_digests"] = np.asarray(json.dumps(synth_digests(root),
+                                                 sort_keys=True))
+    out["tum_frames"] = np.int32(EXP_TUM_FRAMES)
+    out["kitti_frames"] = np.int32(EXP_KITTI_FRAMES)
+    out["depth"] = np.int32(EXP_DEPTH)
+    np.savez_compressed(OUT_EXPERIMENTS, **out)
+    print(f"wrote {OUT_EXPERIMENTS}: "
+          f"{os.path.getsize(OUT_EXPERIMENTS) / 1e3:.1f} kB", flush=True)
+
+
+OUT_VOCAB = os.path.join(HERE, "vocab_train.npz")
+OUT_BRIEF = os.path.join(HERE, "brief.npz")
+# the CPU test's small harvest, and the integer corpora the selection is
+# held on (brief_cases.integer_corpus): the CPU test's and chip_smoke.py's
+BRIEF_HARVEST = 800
+BRIEF_CORPORA = (2000, 8000)
+BRIEF_HEAD = 16
+
+
+def sha256_file(path):
+    import hashlib
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def record_vocab():
+    """scripts/train_vocab.py's harvest and training (Vocabulary.train,
+    k=10, L=4, seed 0, as its main() runs them) on 1 scene x 2 poses and
+    at full size (10 scenes x 8 poses): the descriptors, their sha256 and
+    the written file's, and whether the full file is the committed
+    loop/vocab_synth.txt. The files go to build/vocab_train/, never into
+    object_slam_tpu/."""
+    import hashlib
+    from object_slam_tpu.loop.vocabulary import Vocabulary
+    tv = load_script("train_vocab")
+    root = os.path.join(HERE, "..", "..", "build", "vocab_train")
+    os.makedirs(root, exist_ok=True)
+    out = {}
+    for tag, kw in (("small", dict(n_scenes=1, n_poses=2)),
+                    ("full", dict(n_scenes=10))):
+        descs = tv.harvest(**kw)
+        path = os.path.join(root, tag + ".txt")
+        Vocabulary.train(descs, 10, 4, seed=0).save_dbow2_text(path)
+        out[f"{tag}.n"] = np.int64(descs.shape[0])
+        out[f"{tag}.desc_sha256"] = np.asarray(
+            hashlib.sha256(np.ascontiguousarray(descs).tobytes()).hexdigest())
+        out[f"{tag}.sha256"] = np.asarray(sha256_file(path))
+        out[f"{tag}.desc"] = descs
+    committed = os.path.join(HERE, "..", "..", "object_slam_tpu", "loop",
+                             "vocab_synth.txt")
+    out["committed.sha256"] = np.asarray(sha256_file(committed))
+    print(f"vocabulary: small {int(out['small.n'])} descriptors, full "
+          f"{int(out['full.n'])}, file {out['full.sha256']}; the committed "
+          f"file {'is' if out['full.sha256'] == out['committed.sha256'] else 'is not'}"
+          f" reproduced", flush=True)
+    np.savez_compressed(OUT_VOCAB, **out)
+    print(f"wrote {OUT_VOCAB}: {os.path.getsize(OUT_VOCAB) / 1e3:.1f} kB",
+          flush=True)
+
+
+def brief_quality(pattern, corpus, tb):
+    """train_brief_pattern.main()'s quality numbers for a pattern over a
+    corpus (its formulas, at full precision): |mean - 0.5| avg, |corr| avg
+    and p95."""
+    pos = tb.candidate_positions()
+    index = {tuple(p): i for i, p in enumerate(pos.tolist())}
+    flat = corpus.reshape(corpus.shape[0], -1)
+    rows = []
+    for y1, x1, y2, x2 in pattern.astype(int).tolist():
+        a = (y1 + tb.HALF) * tb.PATCH + (x1 + tb.HALF)
+        b = (y2 + tb.HALF) * tb.PATCH + (x2 + tb.HALF)
+        assert (y1, x1) in index and (y2, x2) in index
+        rows.append(flat[:, a] < flat[:, b])
+    bits = np.asarray(rows, np.float32)
+    mm = np.abs(bits.mean(axis=1) - 0.5)
+    cc = np.abs(np.corrcoef(bits))
+    np.fill_diagonal(cc, 0)
+    return np.asarray([mm.mean(), cc.mean(), np.percentile(cc, 95)])
+
+
+def record_brief():
+    """scripts/train_brief_pattern.py through its own functions: its
+    harvest at BRIEF_HARVEST patches (per-patch sums and the first
+    BRIEF_HEAD patches kept) and at full size (the per-render, per-level
+    patch counts and per-patch sums); then its main() with
+    harvest_patches swapped for brief_cases.integer_corpus(n) and np.save
+    intercepted, for each n of BRIEF_CORPORA: the pattern, its quality
+    numbers and the scan order main() took (its np.argsort). Nothing is
+    written into object_slam_tpu/."""
+    import brief_cases
+    tb = load_script("train_brief_pattern")
+    out = {}
+    h = tb.harvest_patches(BRIEF_HARVEST)
+    out["harvest.sums"] = h.reshape(h.shape[0], -1).sum(1)
+    out["harvest.head"] = h[:BRIEF_HEAD]
+    # the full harvest, with the patch count of every extract call
+    counts = []
+    import object_slam_tpu.ops.patch_pallas as pp
+    orig = pp.extract_patches_auto
+
+    def counted(img, ys, xs, patch):
+        counts.append((int(img.shape[0]), int(ys.shape[0])))
+        return orig(img, ys, xs, patch)
+    pp.extract_patches_auto = counted
+    try:
+        full = tb.harvest_patches()
+    finally:
+        pp.extract_patches_auto = orig
+    out["full.sums"] = full.reshape(full.shape[0], -1).sum(1)
+    out["full.calls"] = np.asarray(counts, np.int32)
+    print(f"brief: harvest {h.shape[0]} / {full.shape[0]} patches, "
+          f"{len(counts)} extract calls", flush=True)
+    for n in BRIEF_CORPORA:
+        corpus = brief_cases.integer_corpus(n)
+        saved, orders = {}, []
+        argsort, save = np.argsort, np.save
+
+        def keep_order(a, *args, **kw):
+            r = argsort(a, *args, **kw)
+            orders.append(r)
+            return r
+        tb.harvest_patches = lambda n_target=50000, c=corpus: c
+        np.argsort = keep_order
+        np.save = lambda path, arr: saved.update(pattern=np.asarray(arr))
+        try:
+            tb.main()
+        finally:
+            np.argsort, np.save = argsort, save
+        order = [o for o in orders if o.ndim == 1 and o.shape[0] > 50000]
+        assert len(order) == 1, [o.shape for o in orders]
+        out[f"corpus{n}.pattern"] = saved["pattern"]
+        out[f"corpus{n}.order"] = order[0].astype(np.int32)
+        out[f"corpus{n}.quality"] = brief_quality(saved["pattern"], corpus,
+                                                  tb)
+        print(f"brief: integer corpus {n}: quality "
+              f"{out[f'corpus{n}.quality'].tolist()}", flush=True)
+    np.savez_compressed(OUT_BRIEF, **out)
+    print(f"wrote {OUT_BRIEF}: {os.path.getsize(OUT_BRIEF) / 1e3:.1f} kB",
+          flush=True)
+
+
 def main():
     parts = sys.argv[1:] or ["slice1", "objects", "tum_vga", "pipelined",
                              "kidnap", "pipelined_tum_vga", "kidnap_tum_vga",
@@ -2363,6 +2815,27 @@ def main():
         record_parallel()
     if "batched" in parts:
         record_batched()
+    if "pnp_cases" in parts:
+        record_pnp_cases()
+    if "experiments" in parts:
+        record_experiments()
+    if "experiments_tiny" in parts:
+        record_experiments_tiny()
+    if "vocab" in parts:
+        record_vocab()
+    if "brief" in parts:
+        record_brief()
+    if "kitti_pass_noise" in parts:
+        record_kitti_pass_noise()
+    for p in parts:
+        # loop_small_noise: every part in turn; loop_small_noise:<part>
+        # one of them (noise<k>, merge), for parallel runs
+        if p == "loop_small_noise":
+            for part in ([f"noise{k}" for k in range(LOOP_SMALL_NOISE_RUNS)]
+                         + ["merge"]):
+                record_loop_small_noise(part)
+        elif p.startswith("loop_small_noise:"):
+            record_loop_small_noise(p.split(":", 1)[1])
 
 
 if __name__ == "__main__":
