@@ -12,7 +12,9 @@ Extraction runs in two passes: detection (FAST, cell top-k, top-k,
 subpixel refinement) level by level, then one ``orb_describe`` call for
 the keypoints of every level (ops/describe.py: one CUDA kernel launch per
 frame on the card; the reference's blur, patch gathers, IC angle and
-BRIEF on the CPU).
+BRIEF on the CPU). ``extract_pair`` extracts a stereo pair's two images
+with one launch for both (each image's keypoints as ``__call__`` gives
+them).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from object_slam_tpu_torch.device import resolve_device
 from object_slam_tpu_torch.features import fast as fast_mod
 from object_slam_tpu_torch.features import pyramid as pyr_mod
 from object_slam_tpu_torch.ops.describe import (HALF, N_ANGLE_BINS, PATCH,
-                                                orb_describe)
+                                                OrbDescribe, orb_describe)
 from object_slam_tpu_torch.ops.scatter import topk
 
 
@@ -160,25 +162,39 @@ class OrbExtractor:
         self.brief_idx1 = torch.from_numpy(i1.astype(np.int16)).to(self.device)
         self.brief_idx2 = torch.from_numpy(i2.astype(np.int16)).to(self.device)
         self._ids: dict = {}
+        self._calls: dict = {}
 
     def __call__(self, img) -> Keypoints:
         return self._extract(img)
 
-    def _level_ids(self, counts, device):
-        """[N] int32 pyramid level of each keypoint for counts ((level, n),
-        ...); the counts follow from the geometry, so this builds once."""
-        key = (counts, device)
+    def _level_ids(self, counts, device, offset: int = 0):
+        """[N] int32 level slot (pyramid level + offset) of each keypoint
+        for counts ((level, n), ...); the counts follow from the geometry,
+        so this builds once."""
+        key = (counts, device, offset)
         if key not in self._ids:
-            lvl = np.repeat(np.asarray([l for l, _ in counts], np.int32),
-                            [n for _, n in counts])
+            lvl = np.repeat(np.asarray([l + offset for l, _ in counts],
+                                       np.int32), [n for _, n in counts])
             self._ids[key] = torch.from_numpy(lvl).to(device)
         return self._ids[key]
 
-    def _extract(self, img) -> Keypoints:
+    def _kernel(self, n_images: int, device):
+        """The describe launch for n_images pyramids of this geometry on
+        `device` (one OrbDescribe, built once)."""
+        key = (n_images, device)
+        call = self._calls.get(key)
+        if call is None:
+            call = self._calls[key] = OrbDescribe(
+                self.shapes * n_images, device, self.brief_idx1,
+                self.brief_idx2, radius=self.cfg.orb.half_patch)
+        return call
+
+    def _detect(self, img):
+        """Pass 1, level by level: detection and subpixel refinement.
+        Returns (levels, (uv, response, valid), cy, cx, counts)."""
         o = self.cfg.orb
         levels = [x.contiguous() for x in
                   pyr_mod.build_pyramid(img, o.n_levels, o.scale_factor)]
-        # pass 1, level by level: detection and subpixel refinement
         det, counts = [], []
         for l, lvl_img in enumerate(levels):
             n_l = self.budgets[l]
@@ -204,11 +220,12 @@ class OrbExtractor:
                         valid, ys, xs))
             counts.append((l, ys.shape[0]))
         uv, response, valid, ys, xs = [torch.cat(c) for c in zip(*det)]
-        # pass 2: the IC angle and steered BRIEF of every level at once
-        level = self._level_ids(tuple(counts), img.device)
-        angle, desc = orb_describe(
-            levels, (ys - HALF).to(torch.int32), (xs - HALF).to(torch.int32),
-            level, self.brief_idx1, self.brief_idx2, radius=o.half_patch)
+        return (levels, (uv, response, valid), (ys - HALF).to(torch.int32),
+                (xs - HALF).to(torch.int32), tuple(counts))
+
+    def _finish(self, det, angle, level, desc) -> Keypoints:
+        """The keypoints of one image padded or cut to the slab."""
+        uv, response, valid = det
         kp = Keypoints(uv=uv, response=response, angle=angle, level=level,
                        desc=desc, valid=valid)
         n = kp.uv.shape[0]
@@ -217,7 +234,7 @@ class OrbExtractor:
             kp = Keypoints(*[torch.cat(
                 [getattr(kp, f), torch.zeros((pad,) + getattr(kp, f).shape[1:],
                                              dtype=getattr(kp, f).dtype,
-                                             device=img.device)], 0)
+                                             device=uv.device)], 0)
                 for f in Keypoints._fields])
         elif n > self.n_kp:
             _, sel = topk(torch.where(kp.valid, kp.response,
@@ -225,6 +242,44 @@ class OrbExtractor:
                           self.n_kp)
             kp = Keypoints(*[getattr(kp, f)[sel] for f in Keypoints._fields])
         return kp
+
+    def _extract(self, img) -> Keypoints:
+        levels, det, cy, cx, counts = self._detect(img)
+        # pass 2: the IC angle and steered BRIEF of every level at once
+        dev = img.device
+        level = self._level_ids(counts, dev)
+        if dev.type == "cpu":      # the plain version
+            angle, desc = orb_describe(levels, cy, cx, level,
+                                       self.brief_idx1, self.brief_idx2,
+                                       radius=self.cfg.orb.half_patch)
+        else:
+            angle, desc = self._kernel(1, dev)(levels, cy, cx, level)
+        return self._finish(det, angle, level, desc)
+
+    def extract_pair(self, img_l, img_r):
+        """(Keypoints of img_l, Keypoints of img_r), each as __call__
+        gives it; on the card one describe launch serves both images (a
+        level table of both pyramids, the right image's slots after the
+        left's)."""
+        dev = img_l.device
+        if dev.type == "cpu":
+            return self._extract(img_l), self._extract(img_r)
+        lv_l, det_l, cy_l, cx_l, counts_l = self._detect(img_l)
+        lv_r, det_r, cy_r, cx_r, counts_r = self._detect(img_r)
+        n_l = cy_l.shape[0]
+        key = (counts_l, counts_r, dev)
+        slots = self._ids.get(key)
+        if slots is None:
+            slots = self._ids[key] = torch.cat([
+                self._level_ids(counts_l, dev),
+                self._level_ids(counts_r, dev, offset=len(lv_l))])
+        angle, desc = self._kernel(2, dev)(
+            lv_l + lv_r, torch.cat([cy_l, cy_r]), torch.cat([cx_l, cx_r]),
+            slots)
+        return (self._finish(det_l, angle[:n_l], self._level_ids(
+                    counts_l, dev), desc[:n_l]),
+                self._finish(det_r, angle[n_l:], self._level_ids(
+                    counts_r, dev), desc[n_l:]))
 
     def scale_factors(self):
         o = self.cfg.orb

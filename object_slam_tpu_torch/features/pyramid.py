@@ -7,12 +7,25 @@ with ``mode="bilinear"`` does not, and its ``antialias=True`` uses other
 weights. So each level's separable weight matrices are built on the host
 the way ``jax.image.resize`` builds them (jax/_src/image/scale.py,
 ``compute_weight_mat``) and applied as two matrix products.
+
+On the CPU, for the image sizes in ``xla_resize.npz`` (TUM VGA), each
+product is instead summed tap by tap in the order XLA:CPU sums it, with
+the weights the compiled reference computes (``resize_taps``), so that the
+levels equal the reference's bit for bit: a last-ulp difference moves a
+FAST response across a quarter step of the lattice and reorders
+keypoints. The card keeps the two matrix products: there the tracking
+that follows the pyramid sums in another order than the CPU's anyway
+(a TUM-VGA run with the reference's levels on the card parted from the
+CPU port's run at a keyframe decision one inlier from its threshold), and
+the products are its paths' arithmetic since the first slice. The file is
+written by tests/torch_fixtures/make_reference.py xla_resize.
 """
 
 from __future__ import annotations
 
+import os
 from functools import lru_cache
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -48,10 +61,79 @@ def resize_weights(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[None, :], weights, f32(0.0)).astype(f32)
 
 
+_PLAN_FILE = os.path.join(os.path.dirname(__file__), "xla_resize.npz")
+
+
+@lru_cache(maxsize=None)
+def _plans() -> Dict[tuple, tuple]:
+    """(axis, n_in, n_out, n_other) -> (start [n_out] int, w [n_out, 3]
+    f32, group [n_out, 3] int8, rounded bool) for each product the file
+    records: output j sums taps start[j] + s (s = 0, 1, 2) with weights
+    w[j, s] into two partial sums chosen by group[j, s], each an FMA chain
+    (rounded False) or a chain of rounded products (rounded True), and
+    adds the two."""
+    if not os.path.exists(_PLAN_FILE):
+        return {}
+    f = np.load(_PLAN_FILE)
+    out = {}
+    for key in {k.rsplit(".", 1)[0] for k in f.files}:
+        axis, n_in, n_out, other = key.split("_")
+        out[(axis, int(n_in), int(n_out), int(other))] = (
+            f[key + ".start"], f[key + ".w"], f[key + ".group"],
+            bool(f[key + ".rounded"]))
+    return out
+
+
+TAPS = 3
+_plan_cache: Dict[tuple, tuple] = {}
+
+
+def _plan(key):
+    """One product's plan as CPU tensors (built once): the flat tap
+    indices [n_out * 3], the weights [n_out, 3, 1] in float64 and the group
+    masks [n_out, 3, 1], with the rounded flag."""
+    if key not in _plan_cache:
+        start, w, group, rounded = _plans()[key]
+        idx = np.minimum(start[:, None] + np.arange(TAPS), key[1] - 1)
+        _plan_cache[key] = (
+            torch.from_numpy(idx.reshape(-1).astype(np.int64)),
+            torch.from_numpy(w.astype(np.float64))[:, :, None],
+            torch.from_numpy(group.astype(bool))[:, :, None], rounded)
+    return _plan_cache[key]
+
+
+def resize_taps(x, key, axis: int):
+    """One of jax.image.resize's two products as XLA:CPU sums it: for each
+    output o, the taps k = start[o] + s (s = 0, 1, 2) with weights w[o, s]
+    go into two partial sums chosen by group[o, s], each in tap order, and
+    the output is their sum. A step adds the exact product (float64) to the
+    float32 partial sum and rounds once to float32 (XLA's FMA), or, for a
+    rounded plan, adds the product rounded to float32. axis 0 contracts
+    the rows of x ([n_in, m] -> [n_out, m]), 1 its columns."""
+    idx, w, group, rounded = _plan(key)
+    xt = x if axis == 0 else x.T
+    n_out = w.shape[0]
+    p = xt.double().index_select(0, idx).reshape(n_out, TAPS, -1) * w
+    if rounded:
+        p = p.float().double()
+    acc0 = torch.zeros_like(p[:, 0])
+    acc1 = torch.zeros_like(acc0)
+    for s in range(TAPS):
+        g = group[:, s]
+        u = (p[:, s] + torch.where(g, acc1, acc0)).float().double()
+        acc0 = torch.where(g, acc0, u)
+        acc1 = torch.where(g, u, acc1)
+    out = acc0.float() + acc1.float()
+    return out if axis == 0 else out.T.contiguous()
+
+
 def resize_linear(img: torch.Tensor, out_shape: Tuple[int, int]):
     """jax.image.resize(img, out_shape, 'linear') for a 2-D image."""
     h, w = img.shape
     oh, ow = out_shape
+    rows, cols = ("rows", h, oh, w), ("cols", w, ow, oh)
+    if img.device.type == "cpu" and rows in _plans() and cols in _plans():
+        return resize_taps(resize_taps(img, rows, 0), cols, 1)
     wy = torch.from_numpy(resize_weights(h, oh)).to(img.device)
     wx = torch.from_numpy(resize_weights(w, ow)).to(img.device)
     return wy.T @ img @ wx

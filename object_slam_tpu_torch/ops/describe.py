@@ -17,6 +17,9 @@ and blurred pixels in shared memory.
 
 ``orb_describe`` runs the plain version only for tensors on the CPU. For
 CUDA tensors it launches the kernel or raises; there is no fallback.
+``OrbDescribe`` is the launch an extractor keeps for its level geometry
+(up to MAX_LEVELS levels: a stereo pair's two pyramids in one launch): it
+checks the fixed parts once and, per call, what changes.
 ``orb_describe.launches`` counts kernel launches.
 """
 
@@ -34,7 +37,7 @@ from object_slam_tpu_torch.ops.patch import extract_patches_ref
 PATCH = 32          # patch window size; keypoint sits at (HALF, HALF)
 HALF = 15
 N_ANGLE_BINS = 64   # steered-BRIEF rotation quantization (5.6 deg)
-MAX_LEVELS = 8      # the kernel's level table
+MAX_LEVELS = 16     # the kernel's level table (a stereo pair's pyramids)
 KERNEL = "orb_describe"
 _BLUR = [float(w) for w in pyr_mod.blur_weights()]   # gaussian_blur's taps
 
@@ -146,7 +149,8 @@ def _lib():
     fn = lib.orb_describe
     if fn.restype is not ctypes.c_int or not fn.argtypes:
         fn.argtypes = [ctypes.POINTER(_Params)] + [ctypes.c_void_p] * 3 + \
-            [ctypes.c_int] + [ctypes.c_void_p] * 5
+            [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int,
+                                                      ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -158,51 +162,104 @@ def _check(name, t, dtype, dim, device):
                          f"tensor on {device}")
 
 
+class OrbDescribe:
+    """One launch of the kernel per call for a fixed level geometry: the
+    shapes of up to MAX_LEVELS contiguous f32 level images on one CUDA
+    device (a stereo pair's two pyramids side by side), the BRIEF tables
+    and the IC-angle settings, checked once here. A call checks what
+    changes between calls (each level's and each keypoint array's device,
+    dtype, contiguity and shape) and rewrites only the level pointers of
+    the parameter block it keeps."""
+
+    def __init__(self, shapes, device, idx1, idx2, radius: int = 15,
+                 tau: float = 0.02):
+        device = torch.device(device)
+        if device.type != "cuda":
+            raise ValueError("OrbDescribe needs a CUDA device")
+        shapes = [tuple(int(x) for x in hw) for hw in shapes]
+        if any(len(hw) != 2 for hw in shapes):
+            raise ValueError("every level must be a 2-D image")
+        if not 1 <= len(shapes) <= MAX_LEVELS:
+            raise ValueError(f"1 to {MAX_LEVELS} levels, got {len(shapes)}")
+        for l, (h, w) in enumerate(shapes):
+            if h < PATCH or w < PATCH:
+                raise ValueError(f"levels[{l}] must be at least "
+                                 f"{PATCH}x{PATCH}")
+        for name, t in (("idx1", idx1), ("idx2", idx2)):
+            if t.device.type != "cuda":
+                raise ValueError(f"{name} must be on {device}")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        for name, t in (("idx1", idx1), ("idx2", idx2)):
+            _check(name, t, torch.int16, 2, device)
+            if tuple(t.shape) != (N_ANGLE_BINS, 256) or t.data_ptr() % 16:
+                raise ValueError(f"{name} must be [{N_ANGLE_BINS}, 256], "
+                                 f"16-byte aligned")
+        self.shapes = shapes
+        self.device = device
+        self._dev = device.index
+        self._idx = (idx1, idx2, idx1.data_ptr(), idx2.data_ptr())
+        p = _Params()
+        for l, (h, w) in enumerate(shapes):
+            p.h[l], p.w[l] = h, w
+        p.n_levels = len(shapes)
+        p.blur[:] = _BLUR
+        p.radius = radius
+        p.tau = tau
+        self._p = p
+        self._pref = ctypes.byref(p)
+        self._fn = None
+        self._stream = torch._C._cuda_getCurrentRawStream
+
+    def __call__(self, levels, cy, cx, lvl):
+        """(angle [N] f32, desc [N, 8] int32) for corners cy, cx and level
+        slots lvl ([N] int32, contiguous, on the device) over `levels`."""
+        dev = self._dev
+        if len(levels) != len(self.shapes):
+            raise ValueError(f"{len(self.shapes)} levels expected, got "
+                             f"{len(levels)}")
+        img = self._p.img
+        for l, (t, hw) in enumerate(zip(levels, self.shapes)):
+            if t.get_device() != dev or t.dtype is not torch.float32 or \
+                    t.shape != hw or not t.is_contiguous():
+                raise ValueError(f"levels[{l}] must be a contiguous "
+                                 f"{hw[0]}x{hw[1]} float32 tensor on "
+                                 f"{self.device}")
+            img[l] = t.data_ptr()
+        n = cy.shape[0] if cy.dim() == 1 else -1
+        for name, t in (("cy", cy), ("cx", cx), ("lvl", lvl)):
+            if t.get_device() != dev or t.dtype is not torch.int32 or \
+                    t.dim() != 1 or t.shape[0] != n or not t.is_contiguous():
+                raise ValueError(f"{name} must be a contiguous [{n}] int32 "
+                                 f"tensor on {self.device}")
+        out = torch.empty(9 * n, dtype=torch.int32, device=self.device)
+        angle = out[:n].view(torch.float32)
+        desc = out[n:].view(n, 8)
+        if n == 0:
+            return angle, desc
+        if self._fn is None:
+            self._fn = _lib()
+        rc = self._fn(self._pref, cy.data_ptr(), cx.data_ptr(),
+                      lvl.data_ptr(), n, self._idx[2], self._idx[3],
+                      angle.data_ptr(), desc.data_ptr(), dev,
+                      self._stream(dev))
+        if rc != 0:
+            raise RuntimeError(f"orb_describe launch failed: CUDA error {rc}")
+        orb_describe.launches += 1
+        return angle, desc
+
+
 def orb_describe_cuda(levels, cy, cx, lvl, idx1, idx2, radius: int = 15,
                       tau: float = 0.02):
-    """Launch the kernel once for all levels. levels: 1..8 contiguous
-    [H, W] f32 CUDA tensors (H, W >= 32); cy, cx, lvl [N] int32 (lvl in
-    [0, len(levels))); idx1, idx2 [64, 256] int16, all on one device."""
+    """Launch the kernel once for all levels. levels: 1..MAX_LEVELS
+    contiguous [H, W] f32 CUDA tensors (H, W >= 32); cy, cx, lvl [N] int32
+    (lvl in [0, len(levels)); a slot outside gives a NaN angle and a zero
+    descriptor); idx1, idx2 [64, 256] int16, all on one device."""
     if not levels or levels[0].device.type != "cuda":
         raise ValueError("orb_describe_cuda needs CUDA tensors")
-    dev = levels[0].device
-    if len(levels) > MAX_LEVELS:
-        raise ValueError(f"at most {MAX_LEVELS} levels, got {len(levels)}")
-    for l, img in enumerate(levels):
-        _check(f"levels[{l}]", img, torch.float32, 2, dev)
-        if img.shape[0] < PATCH or img.shape[1] < PATCH:
-            raise ValueError(f"levels[{l}] must be at least {PATCH}x{PATCH}")
-    for name, t in (("cy", cy), ("cx", cx), ("lvl", lvl)):
-        _check(name, t, torch.int32, 1, dev)
-    if not cy.shape == cx.shape == lvl.shape:
-        raise ValueError("cy, cx and lvl must have the same shape")
-    for name, t in (("idx1", idx1), ("idx2", idx2)):
-        _check(name, t, torch.int16, 2, dev)
-        if tuple(t.shape) != (N_ANGLE_BINS, 256):
-            raise ValueError(f"{name} must be [{N_ANGLE_BINS}, 256]")
-    n = cy.shape[0]
-    angle = torch.empty(n, dtype=torch.float32, device=dev)
-    desc = torch.empty((n, 8), dtype=torch.int32, device=dev)
-    if n == 0:
-        return angle, desc
-    p = _Params()
-    for l, img in enumerate(levels):
-        p.img[l] = img.data_ptr()
-        p.h[l], p.w[l] = img.shape
-    p.n_levels = len(levels)
-    p.blur[:] = _BLUR
-    p.radius = radius
-    p.tau = tau
-    fn = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(ctypes.byref(p), cy.data_ptr(), cx.data_ptr(), lvl.data_ptr(),
-                n, idx1.data_ptr(), idx2.data_ptr(), angle.data_ptr(),
-                desc.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"orb_describe launch failed: CUDA error {rc}")
-    orb_describe.launches += 1
-    return angle, desc
+    call = OrbDescribe([tuple(t.shape) for t in levels], levels[0].device,
+                       idx1, idx2, radius, tau)
+    return call(levels, cy, cx, lvl)
 
 
 def orb_describe(levels, cy, cx, lvl, idx1, idx2, radius: int = 15,

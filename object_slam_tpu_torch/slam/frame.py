@@ -271,8 +271,7 @@ class FrameBuilder:
         gray_r = self._image(gray_r).contiguous()
         rgb = (torch.stack([gray_l] * 3, -1) if rgb is None
                else self._image(rgb))
-        kp_l = self.extractor(gray_l)
-        kp_r = self.extractor(gray_r)
+        kp_l, kp_r = self.extractor.extract_pair(gray_l, gray_r)
         uv_und = cam_mod.undistort_points(self.K, kp_l.uv)
         with torch.profiler.record_function("match_stereo"):
             ur, depth, ok = stereo_mod.match_stereo(

@@ -7,9 +7,10 @@ and decisions (Rublee et al., ICCV 2011, section 4.3):
   1. harvest_patches: ~50k oriented keypoint patches from synthetic rooms
      (6 scenes x 8 orbit poses at TUM VGA): per render the port's ORB
      extractor (one orb_describe launch), the pyramid and its blur, then
-     per level ops/patch.py::extract_patches (csrc/patch_extract.cu, the
-     counterpart of the reference's one Pallas kernel) at the keypoints'
-     32x32 windows, and rotate_patches to the canonical orientation;
+     ops/patch.py::extract_patches_levels (csrc/patch_extract.cu, the
+     counterpart of the reference's one Pallas kernel; one launch for the
+     render's keypoints over every level) at the keypoints' 32x32
+     windows, and rotate_patches to the canonical orientation;
   2. candidate_positions: the 529 positions of the radius-13 disk; 80,000
      position pairs drawn from RandomState(1), canonicalized and made
      unique on the host (candidate_tests);
@@ -59,9 +60,9 @@ DEFAULT_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
 def harvest_patches(n_target=50000, device=None, levels_out=None):
     """Oriented, blurred keypoint patches from synthetic renders: [n, 32,
     32] float64 on the device (the reference's blend is float64).
-    levels_out: a list that gets (blurred level, ys, xs, windows) of every
-    extract_patches call (checks hold the kernel to its plain version on
-    the same inputs)."""
+    levels_out: a list that gets (blurred levels, ys, xs, level slots,
+    windows) of every extract_patches_levels call (checks hold the kernel
+    to its plain version on the same inputs)."""
     import torch
     from object_slam_tpu_torch.config import SlamConfig
     from object_slam_tpu_torch.datasets.synthetic import (SyntheticScene,
@@ -69,7 +70,7 @@ def harvest_patches(n_target=50000, device=None, levels_out=None):
     from object_slam_tpu_torch.features import pyramid as pyr_mod
     from object_slam_tpu_torch.features.extractor import OrbExtractor
     from object_slam_tpu_torch.ops.describe import HALF as XHALF
-    from object_slam_tpu_torch.ops.patch import extract_patches
+    from object_slam_tpu_torch.ops.patch import extract_patches_levels
 
     cfg = SlamConfig.tum_rgbd()
     ex = OrbExtractor(cfg, device=device)
@@ -87,23 +88,30 @@ def harvest_patches(n_target=50000, device=None, levels_out=None):
             uv = kp.uv.cpu().numpy()
             lvl = kp.level.cpu().numpy()
             ang = kp.angle.cpu().numpy()
-            # blurred windows per level, then rotated to canonical
+            # blurred windows of every level in one call (level by level,
+            # each level's keypoints in slab order), then rotated to
+            # canonical
             levels = pyr_mod.build_pyramid(img, o.n_levels, o.scale_factor)
-            for l in range(o.n_levels):
-                sel = valid & (lvl == l)
-                if sel.sum() == 0:
-                    continue
-                scale = o.scale_factor ** l
-                xs = np.round(uv[sel, 0] / scale).astype(np.int32)
-                ys = np.round(uv[sel, 1] / scale).astype(np.int32)
-                blurred = pyr_mod.gaussian_blur(levels[l]).contiguous()
-                ys_t = torch.from_numpy(ys - XHALF).to(dev)
-                xs_t = torch.from_numpy(xs - XHALF).to(dev)
-                p = extract_patches(blurred, ys_t, xs_t)
-                if levels_out is not None:
-                    levels_out.append((blurred, ys_t, xs_t, p))
-                patches.append(rotate_patches(p, -ang[sel]))
-                total += p.shape[0]
+            sel = np.concatenate([np.nonzero(valid & (lvl == l))[0]
+                                  for l in range(o.n_levels)])
+            if sel.size == 0:
+                continue
+            # float32 / float32, as a level's uv over its Python-float
+            # scale divides
+            scale = np.asarray([o.scale_factor ** l
+                                for l in range(o.n_levels)],
+                               np.float32)[lvl[sel]]
+            xs = np.round(uv[sel, 0] / scale).astype(np.int32)
+            ys = np.round(uv[sel, 1] / scale).astype(np.int32)
+            blurred = [pyr_mod.gaussian_blur(x).contiguous() for x in levels]
+            ys_t = torch.from_numpy(ys - XHALF).to(dev)
+            xs_t = torch.from_numpy(xs - XHALF).to(dev)
+            lv_t = torch.from_numpy(lvl[sel].astype(np.int32)).to(dev)
+            p = extract_patches_levels(blurred, ys_t, xs_t, lv_t)
+            if levels_out is not None:
+                levels_out.append((blurred, ys_t, xs_t, lv_t, p))
+            patches.append(rotate_patches(p, -ang[sel]))
+            total += p.shape[0]
             if total >= n_target:
                 break
         if total >= n_target:

@@ -91,6 +91,12 @@ def test_ref_matches_jax_chain(name, shapes, per_level, seed):
     in another order."""
     levels, cy, cx, lvl = _inputs(seed, shapes, per_level)
     ang, desc = _run_ref(levels, cy, cx, lvl)
+    _hold_to_jax(ang, desc, *_jax_chain(levels, cy, cx, lvl))
+
+
+def _jax_chain(levels, cy, cx, lvl):
+    """The reference's per-level chain: (angles [N], descriptors [N, 8]
+    int32) in the order of the inputs (sorted by level)."""
     D = j_ex.make_brief_matrix(j_ex.make_pattern())
     j_ang, j_desc = [], []
     for l, img in enumerate(levels):
@@ -103,12 +109,43 @@ def test_ref_matches_jax_chain(name, shapes, per_level, seed):
         j_desc.append(np.asarray(j_ex._brief_from_patches(p_blur, a, D)))
     j_ang = np.concatenate(j_ang)
     j_desc = np.ascontiguousarray(np.concatenate(j_desc)).view(np.int32)
+    return j_ang, j_desc
+
+
+def _hold_to_jax(ang, desc, j_ang, j_desc):
     assert (j_ang != 0).mean() > 0.5          # the gate passes most angles
     d = np.angle(np.exp(1j * (ang.astype(np.float64) - j_ang)))
     assert np.abs(d).max() <= 1e-4
     same = _bins(ang) == _bins(j_ang)
     assert same.mean() >= 0.995
     assert np.array_equal(desc[same], j_desc[same])
+
+
+KITTI = t_pyr.level_shapes(376, 1241, 8, 1.2)
+
+
+@pytest.mark.parametrize("second", ["tum_vga", "kitti"])
+def test_paired_table_equals_two_single_calls_and_jax(second):
+    """A stereo pair's describe: one call with a 16-entry level table (the
+    first image's 8 levels, then the second's, its slots offset by 8)
+    equals the two one-image calls bit for bit, and each image's half is
+    held to the JAX chain as test_ref_matches_jax_chain holds it; also
+    with a second image of other widths (a KITTI pyramid beside a TUM-VGA
+    one)."""
+    la, cya, cxa, lva = _inputs(11, TUM_VGA, 10)
+    lb, cyb, cxb, lvb = _inputs(12, TUM_VGA if second == "tum_vga"
+                                else KITTI, 10)
+    n_a = cya.shape[0]
+    assert len(la) + len(lb) == d_mod.MAX_LEVELS
+    ang, desc = _run_ref(la + lb, np.concatenate([cya, cyb]),
+                         np.concatenate([cxa, cxb]),
+                         np.concatenate([lva, lvb + len(la)]))
+    for lv, cy, cx, lvl, sl in ((la, cya, cxa, lva, slice(0, n_a)),
+                                (lb, cyb, cxb, lvb, slice(n_a, None))):
+        one_ang, one_desc = _run_ref(lv, cy, cx, lvl)
+        assert np.array_equal(ang[sl], one_ang)
+        assert np.array_equal(desc[sl], one_desc)
+        _hold_to_jax(ang[sl], desc[sl], *_jax_chain(lv, cy, cx, lvl))
 
 
 def _kernel_blur_window(img, y0, x0):
@@ -227,6 +264,21 @@ def test_kernel_wrapper_never_falls_back_to_cpu():
         d_mod.orb_describe_cuda(
             [torch.from_numpy(x) for x in levels], torch.from_numpy(cy),
             torch.from_numpy(cx), torch.from_numpy(lvl), i1, i2)
+
+
+def test_lean_wrapper_checks_once_and_needs_a_card():
+    """OrbDescribe (the extractor's kept launch) refuses a CPU device, more
+    than MAX_LEVELS levels, a level under 32x32 and BRIEF tables of the
+    wrong type or shape before any call."""
+    i1, i2 = _brief_tables()
+    with pytest.raises(ValueError):
+        d_mod.OrbDescribe(TUM_VGA, "cpu", i1, i2)
+    with pytest.raises(ValueError):
+        d_mod.OrbDescribe(TUM_VGA * 2 + [(32, 32)], "cuda", i1, i2)
+    with pytest.raises(ValueError):
+        d_mod.OrbDescribe([(31, 64)], "cuda", i1, i2)
+    with pytest.raises(ValueError):
+        d_mod.OrbDescribe([(64, 64, 1)], "cuda", i1, i2)
 
 
 def test_extractor_describes_a_frame_in_one_call(monkeypatch):

@@ -57,6 +57,45 @@ def test_matches_pallas_kernel_interpret_bitwise():
     assert np.array_equal(got, ref)
 
 
+@pytest.mark.parametrize("seed,shapes", [
+    (8, [(480, 640), (400, 533), (333, 444), (278, 370), (231, 309),
+         (193, 257), (161, 214), (134, 179)]),
+    (9, [(32, 32), (67, 55), (120, 160), (33, 35)] * 4)])
+def test_levels_plain_version_matches_xla_contract_per_level(seed, shapes):
+    """extract_patches_levels' plain version (a level slot per window, the
+    slots in any order, up to 16 levels) equals extract_patches_xla on
+    each window's level, bit for bit; a slot outside the table gives a
+    zero window."""
+    rng = np.random.RandomState(seed)
+    imgs = [rng.uniform(0, 255, hw).astype(np.float32) for hw in shapes]
+    n = 40 * len(shapes)
+    lvl = rng.randint(-1, len(shapes) + 1, n).astype(np.int32)
+    ys = np.array([rng.randint(-20, shapes[l][0] + 20) if 0 <= l < len(
+        shapes) else 0 for l in lvl], np.int32)
+    xs = np.array([rng.randint(-20, shapes[l][1] + 20) if 0 <= l < len(
+        shapes) else 0 for l in lvl], np.int32)
+    got = patch_mod.extract_patches_levels(
+        [torch.from_numpy(im) for im in imgs], torch.from_numpy(ys),
+        torch.from_numpy(xs), torch.from_numpy(lvl)).numpy()
+    assert got.shape == (n, 32, 32)
+    for l, im in enumerate(imgs):
+        sel = lvl == l
+        ref = np.asarray(extract_patches_xla(
+            jnp.asarray(im), jnp.asarray(ys[sel]), jnp.asarray(xs[sel])))
+        assert np.array_equal(got[sel], ref)
+    out = (lvl < 0) | (lvl >= len(shapes))
+    assert out.any() and not got[out].any()
+
+
+def test_levels_wrapper_never_falls_back_to_cpu():
+    img, ys, xs = _inputs(10)
+    lvl = np.zeros_like(ys)
+    with pytest.raises(ValueError):
+        patch_mod.extract_patches_levels_cuda(
+            [torch.from_numpy(img)], torch.from_numpy(ys),
+            torch.from_numpy(xs), torch.from_numpy(lvl))
+
+
 def test_cpu_path_counts_no_launch():
     before = patch_mod.extract_patches.launches
     img, ys, xs = _inputs(4)

@@ -225,6 +225,35 @@ def test_build_stereo_object_slab(built, rgb):
             assert np.array_equal(got, want), f
 
 
+def test_build_stereo_extracts_the_pair_in_one_call(pair, monkeypatch):
+    """build_stereo extracts both images through OrbExtractor.extract_pair
+    (one describe launch for the pair on the card), and the frame's
+    keypoints are the ones two one-image extractions give (the path before
+    the pair had one launch), bit for bit, the right image's too."""
+    gl, gr, sa = pair
+    tb = FrameBuilder(TCFG, device="cpu")
+    seen = []
+    orig = t_ex.OrbExtractor.extract_pair
+
+    def spy(self, a, b):
+        out = orig(self, a, b)
+        seen.append(out)
+        return out
+
+    monkeypatch.setattr(t_ex.OrbExtractor, "extract_pair", spy)
+    tf = interop.frame_to_numpy(tb.build_stereo(gl, gr, None, sa, 0.9))
+    assert len(seen) == 1
+    one_l = tb.extractor(tb._image(gl).contiguous())
+    one_r = tb.extractor(tb._image(gr).contiguous())
+    for got, want in zip(seen[0], (one_l, one_r)):
+        for f in t_ex.Keypoints._fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+    for f, g in (("uv_raw", "uv"), ("level", "level"), ("angle", "angle"),
+                 ("valid", "valid")):
+        assert np.array_equal(tf[f], getattr(one_l, g).numpy()), f
+    assert np.array_equal(tf["desc"].view(np.int32), one_l.desc.numpy())
+
+
 def test_build_stereo_rgb_none_is_the_stacked_left_image(built):
     """A grayscale rig's frame equals the one built with the left image
     stacked three times as its rgb."""

@@ -56,8 +56,12 @@ inputs and outputs are recorded here once and committed:
 * the offline tools through scripts/'s own functions:
   ``experiments.npz`` and ``experiments_tiny.npz`` (run_experiments.py's
   variants on its generators' directories), ``vocab_train.npz``
-  (train_vocab.py), ``brief.npz`` (train_brief_pattern.py's harvest, and
-  its main() on brief_cases.integer_corpus with the save intercepted).
+  (train_vocab.py; ``vocab_counts`` adds each render's row count of the
+  full harvest), ``brief.npz`` (train_brief_pattern.py's harvest, and
+  its main() on brief_cases.integer_corpus with the save intercepted);
+* ``object_slam_tpu_torch/features/xla_resize.npz`` (``xla_resize``): how
+  XLA:CPU computes jax.image.resize for the TUM-VGA pyramid (its weights
+  and each product's summation order), which the port's pyramid executes.
 
 Run from the repository root (the parts named; with no argument, the
 slices' parts listed in main()):
@@ -68,7 +72,7 @@ slices' parts listed in main()):
         [localization_small] [localization_tum_vga] [euroc_driver]
         [parallel] [batched] [pnp_cases] [kitti_pass_noise]
         [loop_small_noise[:noise<k>|:merge]] [experiments]
-        [experiments_tiny] [vocab] [brief]
+        [experiments_tiny] [xla_resize] [vocab] [vocab_counts] [brief]
 
 slice1, objects and tum_vga use ``pipelined_readback=False``. The rendered
 inputs' checksums are stored so that the tests can prove they re-render
@@ -2616,6 +2620,39 @@ def sha256_file(path):
         return hashlib.sha256(f.read()).hexdigest()
 
 
+def vocab_render_counts(full_desc):
+    """[80] int64: the valid keypoints of each render of train_vocab.py's
+    full harvest (10 scenes x 8 poses, in its order), so that a test can
+    take one render's rows of the recorded descriptors; the renders'
+    descriptors, concatenated, must be the recorded ones."""
+    from object_slam_tpu.config import SlamConfig
+    from object_slam_tpu.datasets.synthetic import (SyntheticScene,
+                                                    loop_trajectory)
+    from object_slam_tpu.features.extractor import OrbExtractor
+    cfg = SlamConfig.tum_rgbd()
+    ex = OrbExtractor(cfg)
+    counts, descs = [], []
+    for seed in range(10):
+        scene = SyntheticScene.make(cfg, seed=seed, n_objects=2,
+                                    plane_z=3.2 + 0.3 * seed)
+        for T in loop_trajectory(8):
+            kp = ex(jnp.asarray(scene.render_rgbd(T)[0]))
+            v = np.asarray(kp.valid)
+            descs.append(np.asarray(kp.desc)[v])
+            counts.append(int(v.sum()))
+    assert np.array_equal(np.concatenate(descs, 0), full_desc)
+    return np.asarray(counts, np.int64)
+
+
+def record_vocab_counts():
+    """Add ``full.counts`` (vocab_render_counts) to vocab_train.npz."""
+    out = dict(np.load(OUT_VOCAB))
+    out["full.counts"] = vocab_render_counts(out["full.desc"])
+    np.savez_compressed(OUT_VOCAB, **out)
+    print(f"wrote {OUT_VOCAB}: {os.path.getsize(OUT_VOCAB) / 1e3:.1f} kB",
+          flush=True)
+
+
 def record_vocab():
     """scripts/train_vocab.py's harvest and training (Vocabulary.train,
     k=10, L=4, seed 0, as its main() runs them) on 1 scene x 2 poses and
@@ -2646,6 +2683,7 @@ def record_vocab():
           f"{int(out['full.n'])}, file {out['full.sha256']}; the committed "
           f"file {'is' if out['full.sha256'] == out['committed.sha256'] else 'is not'}"
           f" reproduced", flush=True)
+    out["full.counts"] = vocab_render_counts(out["full.desc"])
     np.savez_compressed(OUT_VOCAB, **out)
     print(f"wrote {OUT_VOCAB}: {os.path.getsize(OUT_VOCAB) / 1e3:.1f} kB",
           flush=True)
@@ -2730,6 +2768,172 @@ def record_brief():
     np.savez_compressed(OUT_BRIEF, **out)
     print(f"wrote {OUT_BRIEF}: {os.path.getsize(OUT_BRIEF) / 1e3:.1f} kB",
           flush=True)
+
+
+OUT_XLA_RESIZE = os.path.join(HERE, "..", "..", "object_slam_tpu_torch",
+                              "features", "xla_resize.npz")
+# the image sizes whose pyramids the port computes as XLA:CPU does
+XLA_RESIZE_SIZES = ((480, 640),)
+# the jitted reference's pyramids of renders of these train_vocab.py rooms
+# (poses 0 and 1 of loop_trajectory(8)), as sha256 per level, for the CPU
+# test of the port's pyramid
+XLA_RESIZE_CHECK_SCENES = (1, 6)
+OUT_XLA_RESIZE_CHECK = os.path.join(HERE, "xla_resize_check.npz")
+
+
+def _probe_chained(dot, K, M, N):
+    """Positions b in 1..K-1 where XLA:CPU's dot does NOT fuse the product
+    of k = b into the running sum of k = b - 1 (an FMA chain): planted
+    products 2^-24 (1 - 2^-24) at b - 1 and (1 + 2^-23)(1 - 2^-24) at b sum
+    to 1 + 2^-23 in one chain and to 1 when the second product is rounded
+    first or summed apart."""
+    e = np.float32(2.0 ** -24)
+    hi = np.float32(1 + 2.0 ** -23)
+    lo = np.float32(1 - 2.0 ** -24)
+    split = []
+    for s0 in range(1, K, M):
+        bs = list(range(s0, min(s0 + M, K)))
+        w = np.zeros((K, M), np.float32)
+        for i, b in enumerate(bs):
+            w[b - 1, i] = e
+            w[b, i] = hi
+        out = dot(w, np.full((K, N), lo, np.float32))
+        assert (out == out[:, :1]).all()
+        out = out[:, 0]
+        for i, b in enumerate(bs):
+            assert out[i] in (np.float32(1.0), hi), (K, M, N, b, out[i])
+            if out[i] == np.float32(1.0):
+                split.append(b)
+    return split
+
+
+def _probe_first_pair(dot, wts, N):
+    """For each output of three taps k0 < k0+1 < k0+2, which two XLA:CPU's
+    dot sums first: planted (1, 2^-24, -1) in the three rotations; the one
+    that cancels to 0 puts 1 and 2^-24 in the first pair."""
+    v = np.array([1.0, 2.0 ** -24, -1.0], np.float32)
+    K, M = wts.shape
+    ones = (wts != 0).astype(np.float32)
+    zero = []
+    for t in range(3):
+        k = np.arange(K)
+        z = dot(ones, np.broadcast_to(v[(k + t) % 3][:, None],
+                                      (K, N)).copy()) == 0
+        assert (z.all(1) | ~z.any(1)).all()
+        zero.append(z[:, 0])
+    pairs = {}
+    for j in range(M):
+        ks = np.nonzero(wts[:, j])[0]
+        if len(ks) != 3:
+            continue
+        t = [i for i in range(3) if zero[i][j]]
+        assert len(t) == 1, (K, M, j, t)
+        p1 = (-(ks[0] + t[0])) % 3          # the slot that held 1.0
+        pairs[int(ks[0])] = tuple(sorted((p1, (p1 + 1) % 3)))
+    return pairs
+
+
+def record_xla_resize():
+    """How XLA:CPU computes jax.image.resize(..., 'linear') for each level
+    of the pyramids of XLA_RESIZE_SIZES (build_pyramid, 8 levels, 1.2): the
+    weight matrices as the compiled program computes them (the resize of an
+    identity, which copies them out exactly) and, for each of its two
+    products, the order in which each output's (at most three) tap products
+    are summed, found by planting values whose sum depends on the order:
+    Eigen's GEMM chains products into one FMA sum and splits the depth into
+    blocks (whose partial sums are then added); some shapes run a kernel
+    that sums even and odd depth apart, or adds rounded products in pairs.
+    Written to object_slam_tpu_torch/features/xla_resize.npz, which
+    pyramid.resize_linear executes; refused unless the port's pyramid then
+    equals the jitted reference's bit for bit on rendered frames, whose
+    levels' sha256 go to xla_resize_check.npz."""
+    import hashlib
+    from object_slam_tpu.config import SlamConfig
+    from object_slam_tpu.datasets.synthetic import (SyntheticScene,
+                                                    loop_trajectory)
+    from object_slam_tpu.features import pyramid as jpyr
+    import torch
+    from object_slam_tpu_torch.features import pyramid as tpyr
+
+    # both return [M, N]: output index first
+    def dot_rows(w, x):        # [K, M] weights, [K, N] image -> [M, N]
+        return np.asarray(jax.jit(lambda a, b: jax.lax.dot_general(
+            a, b, (((0,), (0,)), ((), ())), precision="highest"))(w, x))
+
+    def dot_cols(w, x):        # [K, M] weights, [K, N] = image.T -> [N, M]
+        return np.asarray(jax.jit(lambda a, b: jax.lax.dot_general(
+            a, b, (((1,), (0,)), ((), ())), precision="highest"))(
+                np.ascontiguousarray(x.T), w)).T
+
+    def weights(n_in, n_out):  # [n_in, n_out]
+        return np.asarray(jax.jit(lambda e: jax.image.resize(
+            e, (n_out, n_in), "linear"))(jnp.eye(n_in, dtype=jnp.float32))).T
+
+    out = {}
+    for h, w in XLA_RESIZE_SIZES:
+        shapes = jpyr.level_shapes(h, w, 8, 1.2)
+        for (h0, w0), (h1, w1) in zip(shapes[:-1], shapes[1:]):
+            for axis, n_in, n_out, other, dot in (
+                    ("rows", h0, h1, w0, dot_rows),
+                    ("cols", w0, w1, h1, dot_cols)):
+                wts = weights(n_in, n_out)
+                split = _probe_chained(dot, n_in, n_out, other)
+                start = np.zeros(n_out, np.int32)
+                wk = np.zeros((n_out, 3), np.float32)
+                ks = np.zeros((n_out, 3), np.int64)
+                for j in range(n_out):
+                    nz = np.nonzero(wts[:, j])[0]
+                    assert len(nz) <= 3 and (
+                        len(nz) == 0 or nz[-1] - nz[0] == len(nz) - 1)
+                    start[j] = nz[0] if len(nz) else 0
+                    wk[j, :len(nz)] = wts[nz, j]
+                    ks[j] = start[j] + np.arange(3)
+                if len(split) < n_in - 1:      # FMA chains, depth blocks
+                    group = np.searchsorted(np.asarray(split), ks,
+                                            side="right") % 2
+                    rounded = False
+                else:
+                    pairs = _probe_first_pair(dot, wts, other)
+                    kinds = {(k0 % 2, p) for k0, p in pairs.items()}
+                    if kinds <= {(0, (0, 2)), (1, (0, 2))}:
+                        group, rounded = ks % 2, False     # even / odd sums
+                    elif kinds <= {(0, (0, 1)), (1, (1, 2))}:
+                        group, rounded = (ks // 2) % 2, True  # rounded pairs
+                    else:
+                        raise RuntimeError(f"{axis} {n_in}->{n_out}: {kinds}")
+                key = f"{axis}_{n_in}_{n_out}_{other}"
+                out[key + ".start"] = start
+                out[key + ".w"] = wk
+                out[key + ".group"] = group.astype(np.int8)
+                out[key + ".rounded"] = np.asarray(rounded)
+                how = ("rounded pairs" if rounded else "even / odd sums"
+                       if len(split) == n_in - 1 else f"depth blocks {split}")
+                print(f"xla_resize {key}: {how}", flush=True)
+    np.savez_compressed(OUT_XLA_RESIZE, **out)
+    tpyr._plans.cache_clear()
+    cfg = SlamConfig.tum_rgbd()
+    jit_pyr = jax.jit(lambda im: jpyr.build_pyramid(im, 8, 1.2))
+    check = {}
+    for seed in XLA_RESIZE_CHECK_SCENES:
+        scene = SyntheticScene.make(cfg, seed=seed, n_objects=2,
+                                    plane_z=3.2 + 0.3 * seed)
+        for pose, T in enumerate(loop_trajectory(8)[:2]):
+            gray = np.asarray(scene.render_rgbd(T)[0], np.float32)
+            ref = [np.asarray(a) for a in jit_pyr(jnp.asarray(gray))]
+            got = tpyr.build_pyramid(torch.from_numpy(gray), 8, 1.2)
+            for l, (a, b) in enumerate(zip(ref, got)):
+                n = int((a != b.numpy()).sum())
+                if n:
+                    os.remove(OUT_XLA_RESIZE)
+                    raise RuntimeError(f"level {l}: {n} pixels differ")
+            check[f"{seed}_{pose}.gray_sha256"] = np.asarray(
+                hashlib.sha256(gray.tobytes()).hexdigest())
+            check[f"{seed}_{pose}.level_sha256"] = np.asarray(
+                [hashlib.sha256(a.tobytes()).hexdigest() for a in ref])
+    np.savez_compressed(OUT_XLA_RESIZE_CHECK, **check)
+    print(f"wrote {OUT_XLA_RESIZE}: "
+          f"{os.path.getsize(OUT_XLA_RESIZE) / 1e3:.1f} kB and "
+          f"{OUT_XLA_RESIZE_CHECK}", flush=True)
 
 
 def main():
@@ -2821,8 +3025,12 @@ def main():
         record_experiments()
     if "experiments_tiny" in parts:
         record_experiments_tiny()
+    if "xla_resize" in parts:
+        record_xla_resize()
     if "vocab" in parts:
         record_vocab()
+    if "vocab_counts" in parts:
+        record_vocab_counts()
     if "brief" in parts:
         record_brief()
     if "kitti_pass_noise" in parts:
