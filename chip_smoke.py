@@ -70,7 +70,11 @@ Phases, each fatal on failure:
      times the JAX run's one-ulp noise spread), with its own decisions (an
      accepted closure within 2 keyframes of one the JAX package accepts on
      this circuit, ATE below the JAX run's with the loop off), and with
-     the loop off on its first 40 frames (the ms/frame baseline); the
+     the loop off on its first 40 frames (the ms/frame baseline);
+     scripts/diag_loop_torch.py's closure probe rides the replay (each
+     closure's (q, l, accepted) as the JAX run's, its Sim3 and drift
+     errors within the circuit's record band of the JAX closure's, and
+     the probe with q and l exchanged shown to miss that band); the
      replayed circuit once more with the closure's correction dropped,
      which must fail a band; the kidnap of 6
      with the loop on, the LOST frames relocalizing through the BoW
@@ -164,9 +168,29 @@ Phases, each fatal on failure:
      beside the committed pattern's; then the selection on an integer
      corpus of 8000 patches held row for row to the reference's main()
      (a parting row must sit on a float tie);
+ 6 and 7b's kidnap with the loop on run in the third and the fourth
+     process, beside the main process's other phases (the time limit);
+ 11b. in a fourth process, started beside the others, the accuracy
+     studies at TUM-VGA width (studies_child_main, against
+     studies_vga.npz): scripts/ab_deviations_torch.py's four mapping
+     variants (--scale 1) on 40 frames of its circuit (flags, keyframes,
+     records, ATE) and no_reelect with its flag ignored (must fail);
+     scripts/diag_loop_alias_torch.py's corridor through the JAX run's
+     first rejection, replayed (events exact, numbers within the JAX
+     one-ulp spread) and with its own decisions (no accepted closure,
+     each rejection by the JAX run's gate within 2 keyframes), with
+     orb_describe held to its plain version on a corridor frame, then the
+     first candidate's recorded input through the pre-gate and, with the
+     pre-gate disabled (a planted fault), the post-gates; the two
+     semantic probes (scripts/diag_semopt_torch.py,
+     diag_semopt_ragged_torch.py) on 24 frames of a TUM directory written
+     under build/ (poses before and after the refinement, summary,
+     census; the pose before the refinement thrown away, and masks from
+     another seed, must fail); one orb_describe per frame asserted in
+     every run;
  12. one JSON line of the kernels (orb_describe: launches from the main
-     path of 5, host-in-the-loop, and per phase, with its KITTI-pair and
-     EuRoC-shape numbers; extract_patches: its launches on the BRIEF
+     path of 5, host-in-the-loop, and per phase, with its KITTI-pair,
+     EuRoC- and corridor-shape numbers; extract_patches: its launches on the BRIEF
      harvest of 11 and its numbers at the harvest's shapes, one render's
      launch beside the 8 per-level launches it took before, with the
      frame-shape numbers of 2 beside them), the phase
@@ -2017,13 +2041,16 @@ def loop_circuit_frames(cfg):
 
 
 def run_loop_circuit(cfg, poses, frames, ref, card, loop=True, replay=True,
-                     control=None):
+                     control=None, probes=None):
     """The circuit through track_rgbd_blob (pipelined readback, objects
     on), with or without loop closing; replay: the JAX run's keyframe
     decisions and Sim3 draws. control "correction_dropped" plants a fault
     in the closure: the closer decides and records its event, and the map
-    it returns is the one it was given. Returns the system, the inserted
-    frames, the ATE over the frames run and each frame's host ms."""
+    it returns is the one it was given. probes: a list that receives
+    scripts/diag_loop_torch.py's ClosureProbe on the closer, its
+    keyframe-to-frame map kept as the script keeps it. Returns the
+    system, the inserted frames, the ATE over the frames run and each
+    frame's host ms."""
     import torch
     from object_slam_tpu_torch.eval.ate import ate_rmse
     from object_slam_tpu_torch.slam.system import SlamSystem
@@ -2059,12 +2086,22 @@ def run_loop_circuit(cfg, poses, frames, ref, card, loop=True, replay=True,
         def correct_loop(m, q, l, T12, s12):
             return m, correct(m, q, l, T12, s12)[1]
         sys_.loop_closer._correct_loop = correct_loop
+    probe = None
+    if probes is not None:
+        probe = script_module("diag_loop_torch").ClosureProbe(
+            sys_.loop_closer, poses, log=lambda s: None)
+        probes.append(probe)
     torch.cuda.synchronize()
     zero_counts()
     times = []
     for i, (blob, iv) in enumerate(blobs):
         t0 = time.perf_counter()
+        if probe is not None:
+            probe.current_frame[0] = i
         sys_.track_rgbd_blob(blob, iv, timestamp=i / 30.0)
+        if probe is not None and sys_.last_kf_id >= 0 \
+                and sys_.last_kf_id not in probe.kf_frame:
+            probe.kf_frame[sys_.last_kf_id] = i
         times.append((time.perf_counter() - t0) * 1e3)
     sys_.flush_mapping()
     torch.cuda.synchronize()
@@ -2157,6 +2194,45 @@ def circuit_checks(ref, bands, sys_, inserts, ate):
     ]
 
 
+def probe_reference(probe, poses, swap=False):
+    """scripts/diag_loop_torch.py's numbers for the JAX run's closure: its
+    Sim3 (loop_pass_tum_vga.npz gn0.T12) and keyframe poses at the closure's
+    input, with the replayed probe's keyframe-to-frame map (the replay
+    inserts on the reference's frames). swap: q and l exchanged (a planted
+    fault in the probe, which must miss the bands)."""
+    lp = np.load(LOOP_PASS_REF)
+    q, l = int(lp["q"]), int(lp["attempt_l"][-1])
+    if swap:
+        q, l = l, q
+    Tq, Tl = lp["in.kf_pose"][q], lp["in.kf_pose"][l]
+    gt_q = poses[probe.kf_frame[q]]
+    gt_l = poses[probe.kf_frame[l]]
+    T12_gt = gt_q @ np.linalg.inv(gt_l)
+    dT = lp["gn0.T12"] @ np.linalg.inv(T12_gt)
+    dD = (Tq @ np.linalg.inv(Tl)) @ np.linalg.inv(T12_gt)
+    return {"sim3_trans_err_mm": float(np.linalg.norm(dT[:3, 3]) * 1e3),
+            "sim3_rot_err_deg": _rot_deg(np.eye(4), dT),
+            "drift_trans_mm": float(np.linalg.norm(dD[:3, 3]) * 1e3),
+            "drift_rot_deg": _rot_deg(np.eye(4), dD)}
+
+
+def probe_checks(probe, poses, ref, band_m):
+    """The closure probe of the replayed circuit against the JAX run's
+    closure: the same (q, l, accepted) per closure, the Sim3's and the
+    drift's translation errors within the circuit's record band
+    (circuit_bands), [(what, port, reference, held)]."""
+    want = loop_events(json.loads(str(ref["events"])))
+    got = [(e["q"], e["l"], e["accepted"], False) for e in probe.events]
+    checks = [("closures", got, [w for w in want], got == want)]
+    if got == want and got:
+        jx = probe_reference(probe, poses)
+        e = probe.events[0]
+        for k in ("sim3_trans_err_mm", "drift_trans_mm"):
+            checks.append((k, e[k], f"{jx[k]} +- {band_m * 1e3}",
+                           abs(e[k] - jx[k]) <= band_m * 1e3))
+    return checks
+
+
 def phase_loop_circuit(card):
     """The circuit (loop_circuit_tum_vga.npz) through the main path with
     loop closing on: replayed (the JAX run's keyframe decisions and Sim3
@@ -2184,12 +2260,14 @@ def phase_loop_circuit(card):
     off_ate = float(ref["off.ate"])
     out, ms = {}, {}
     times = {}
+    probes = []
     for name, loop, replay, n in (
             ("replay", True, True, len(frames)),
             ("own", True, False, len(frames)),
             ("loop_off", False, False, LOOP_OFF_FRAMES)):
         sys_, inserts, ate, times[name] = run_loop_circuit(
-            cfg, poses, frames[:n], ref, card, loop=loop, replay=replay)
+            cfg, poses, frames[:n], ref, card, loop=loop, replay=replay,
+            probes=probes if name == "replay" else None)
         out[name] = read_counts(f"loop circuit {name}", n)
         steady = times[name][WARMUP:]
         ms[name] = (float(np.median(steady)), float(np.mean(steady)))
@@ -2213,6 +2291,21 @@ def phase_loop_circuit(card):
             if failed:
                 fail("loop circuit replay: " + "; ".join(
                     f"{c[0]} {c[1]} (limit {c[2]})" for c in failed))
+            # scripts/diag_loop_torch.py's closure probe rode this run
+            pchecks = probe_checks(probes[0], poses, ref, bands[0])
+            print(f"closure probe [{card}]: {json.dumps(probes[0].events)}; "
+                  f"the JAX closure's {json.dumps(probe_reference(probes[0], poses))}; "
+                  + "; ".join(f"{c[0]} {c[1]} ({'held' if c[3] else 'missed'}"
+                              f", {c[2]})" for c in pchecks), flush=True)
+            if not all(c[3] for c in pchecks):
+                fail("closure probe: " + "; ".join(
+                    f"{c[0]} {c[1]} ({c[2]})" for c in pchecks if not c[3]))
+            swapped = probe_reference(probes[0], poses, swap=True)
+            e = probes[0].events[0]
+            if all(abs(e[k] - swapped[k]) <= bands[0] * 1e3
+                   for k in ("sim3_trans_err_mm", "drift_trans_mm")):
+                fail("closure probe: the probe with q and l exchanged "
+                     "passes the bands")
         elif name == "own":
             acc = [(e["q"], e["l"]) for e in ev if e["accepted"]]
             basins = own_basins(ref)
@@ -3955,9 +4048,10 @@ def phase_train_brief(card):
 
 def tools_child_main(out_json: str):
     """The third process: the generators, the battery, the vocabulary
-    trainer and the BRIEF-pattern learner on the card; the launches by
-    phase, the phase seconds, the timings and extract_patches' row at the
-    harvest's shapes written to out_json."""
+    trainer and the BRIEF-pattern learner on the card, then the main
+    path's kidnap (phase_kidnap); the launches by phase, the phase
+    seconds, the timings and extract_patches' row at the harvest's shapes
+    written to out_json."""
     import torch
     from object_slam_tpu_torch.ops import build
     if not torch.cuda.is_available():
@@ -3972,10 +4066,603 @@ def tools_child_main(out_json: str):
         "train_vocab", phase_train_vocab, card)
     by_phase["train_brief"], brief_s, brief_row = phase_timed(
         "train_brief", phase_train_brief, card)
+    # the main path's kidnap (6) runs here, beside the main process's
+    # other phases, for the time limit
+    from object_slam_tpu_torch.config import SlamConfig
+    kid = phase_timed("kidnap", phase_kidnap, SlamConfig.tum_rgbd(), card)
+    by_phase["kidnap_replay"] = kid["replay"]
+    by_phase["kidnap_own_sampler"] = kid["own"]
     with open(out_json, "w") as f:
         json.dump({"by_phase": by_phase, "phase_s": PHASE_S,
                    "vocab_s": vocab_s, "brief_s": brief_s,
                    "brief_row": brief_row}, f)
+
+
+# ---------------------------------------------------------------------------
+# the accuracy studies of scripts/*_torch.py (a fourth process): the mapping
+# variants, the aliased corridor, the semantic-refinement probes; the
+# closure probe rides the circuit's replay in this process
+# ---------------------------------------------------------------------------
+
+STUDIES_REF = os.path.join(FIXTURES, "studies_vga.npz")
+STUDIES_CAND_REF = os.path.join(FIXTURES, "studies.npz")
+STUDIES_ARG = "--studies-phases"
+STUDY_VARIANTS = ("base", "recency_off", "no_reelect", "scale_cond_on")
+# the variants on the first STUDY_VAR_FRAMES frames of the script's
+# 120-frame circuit (a depth cut for the time limit; the 120 frames ran
+# once at full length, PERF.md section 6); the planted fault (the
+# re-election flag ignored) on the first STUDY_VAR_FAULT_FRAMES, where the
+# JAX no_reelect run's keyframes already part from base's (frame 10)
+STUDY_VAR_FRAMES = 40
+STUDY_VAR_FAULT_FRAMES = 16
+# the TUM checks' limits: records, ATE (mm); the variants' circuit is
+# chaotic, so its limits widen to STUDY_NOISE_MARGIN times the JAX run's
+# pinned one-ulp spread where that is wider (study_variant_bands)
+STUDY_REC_M = 2e-3
+STUDY_REC_DEG = 0.1
+STUDY_ATE_MM = 0.02
+STUDY_NOISE_MARGIN = 2.0
+# the corridor's event numbers: 1e-3 relative, or ALIAS_NOISE_MARGIN times
+# the JAX run's own spread under one-ulp noise with its decisions pinned
+ALIAS_RTOL = 1e-3
+ALIAS_NOISE_MARGIN = 2.0
+# the semantic probes: the first STUDY_SEM_FRAMES frames of a
+# make_synth_tum_torch.py directory at SlamConfig.tum_rgbd(); the probe's
+# planted fault (the pose before the refinement thrown away, as the port
+# did before SlamSystem._last_presem_Tcw) on the first
+# STUDY_SEM_FAULT_FRAMES
+STUDY_SEM_FRAMES = 24
+STUDY_SEM_FAULT_FRAMES = 6
+
+
+def _rot_deg(a, b):
+    R = np.asarray(a)[:3, :3].T.astype(np.float64) @ np.asarray(b)[:3, :3]
+    return float(np.degrees(np.arccos(np.clip((np.trace(R) - 1) / 2, -1,
+                                              1))))
+
+
+class _InsertTap:
+    """Records the frame of every keyframe insertion of every SlamSystem
+    while it is active (SlamSystem._insert_impl wrapped on the class)."""
+
+    def __enter__(self):
+        from object_slam_tpu_torch.slam.system import SlamSystem
+        self.frames, self._orig = [], SlamSystem._insert_impl
+        tap = self
+
+        def insert_impl(sys_, m, frame, Tcw, kp_pt, close_mask, frame_id):
+            tap.frames.append(int(frame_id))
+            return tap._orig(sys_, m, frame, Tcw, kp_pt, close_mask,
+                             frame_id)
+        SlamSystem._insert_impl = insert_impl
+        return self
+
+    def __exit__(self, *exc):
+        from object_slam_tpu_torch.slam.system import SlamSystem
+        SlamSystem._insert_impl = self._orig
+
+
+def study_variant_bands(ref, name, n):
+    """(records m, records deg, ATE mm) limits of one mapping variant over
+    its first n frames: the TUM checks' 2 mm / 0.1 deg / 0.02 mm, or
+    STUDY_NOISE_MARGIN times the farthest the JAX run's own pinned
+    one-ulp noise runs land from it, whichever is wider (the 40-frame
+    circuit is chaotic: the card's base run parted from the JAX CPU run
+    by 32.9 mm / 0.84 deg on the same keyframes, PERF.md section 6)."""
+    p = f"var.{name}."
+    k_runs = int(ref[p + "n_noise"])
+    if k_runs < 2:
+        fail(f"study variant {name}: {STUDIES_REF} holds {k_runs} noise "
+             f"runs; 2 are needed")
+    rec = ref[p + "rec_tcw"][:n]
+    d = a = e = 0.0
+    for k in range(k_runs):
+        q = f"{p}noise.{k}."
+        nz = ref[q + "rec_tcw"][:n]
+        d = max(d, float(np.abs(nz[:, :3, 3] - rec[:, :3, 3]).max()))
+        a = max(a, max(_rot_deg(x, y) for x, y in zip(nz, rec)))
+        e = max(e, abs(json.loads(str(ref[q + "result"]))["ate_rmse_mm"]
+                       - json.loads(str(ref[p + "result"]))["ate_rmse_mm"]))
+    return (max(STUDY_REC_M, STUDY_NOISE_MARGIN * d),
+            max(STUDY_REC_DEG, STUDY_NOISE_MARGIN * a),
+            max(STUDY_ATE_MM, STUDY_NOISE_MARGIN * e))
+
+
+def study_variant_checks(ref, name, res, sys_, inserts, n):
+    """[(what, port, reference, held)] of one mapping variant over its
+    first n frames against the JAX run (studies_vga.npz), records and
+    ATE within study_variant_bands."""
+    p = f"var.{name}."
+    want = json.loads(str(ref[p + "result"]))
+    rec_m, rec_deg, ate_mm = study_variant_bands(ref, name, n)
+    sys_._resolve_fused_pending()
+    recs = sys_.trajectory
+    tracked = [r.tracked for r in recs]
+    want_tr = ref[p + "tracked"][:n].tolist()
+    want_ins = [f for f in ref[p + "insert_frames"].tolist() if f < n]
+    d = max(float(np.abs(r.Tcw[:3, 3] - w[:3, 3]).max())
+            for r, w in zip(recs, ref[p + "rec_tcw"][:n]))
+    a = max(_rot_deg(r.Tcw, w) for r, w in zip(recs, ref[p + "rec_tcw"][:n]))
+    checks = [("tracked", tracked, want_tr, tracked == want_tr),
+              ("keyframes at", inserts, want_ins, inserts == want_ins),
+              ("records m", d, rec_m, d <= rec_m),
+              ("records deg", a, rec_deg, a <= rec_deg)]
+    if n == len(ref[p + "tracked"]):
+        checks += [
+            ("ATE mm", res["ate_rmse_mm"],
+             f"{want['ate_rmse_mm']} +- {ate_mm}",
+             abs(res["ate_rmse_mm"] - want["ate_rmse_mm"]) <= ate_mm),
+            ("keyframes", res["n_keyframes"], want["n_keyframes"],
+             res["n_keyframes"] == want["n_keyframes"])]
+    return checks
+
+
+def phase_study_variants(card):
+    """scripts/ab_deviations_torch.py's four mapping-policy variants at
+    --scale 1 (640x480, 8 levels, 1000 features, n_kp 1024) on the first
+    STUDY_VAR_FRAMES frames of its circuit, through its run_variant, each
+    held to the JAX CPU run of the same frames (studies_vga.npz; flags,
+    keyframe frames, keyframe count exact, records within 2 mm / 0.1 deg,
+    the script's ATE within 0.02 mm), one orb_describe per frame; then
+    no_reelect with its flag ignored (faults.ignore_reelect_flag), which
+    must fail a check. Returns the launches of each run."""
+    import torch
+    from object_slam_tpu_torch.datasets.synthetic import render_room
+    sys.path.insert(0, FIXTURES)
+    import faults
+    ab = script_module("ab_deviations_torch")
+    ref = np.load(STUDIES_REF)
+    cfg = ab.build_cfg(1)
+    scene, poses = ab.circuit(cfg, 3, 120, 1.15)
+    poses = poses[:STUDY_VAR_FRAMES]
+    rendered, render_s = render_room(cfg, poses)
+    frames = [f[:3] for f in rendered]
+    print(f"study variants: rendered {len(frames)} frames in "
+          f"{render_s:.1f} s", flush=True)
+    out = {}
+    for name in STUDY_VARIANTS + ("no_reelect_fault",):
+        fault = name.endswith("_fault")
+        vname = "no_reelect" if fault else name
+        n = STUDY_VAR_FAULT_FRAMES if fault else len(frames)
+        vcfg = ab.variant_cfg(cfg, vname)
+        if fault:
+            vcfg = faults.ignore_reelect_flag(vcfg)
+        systems = []
+        torch.cuda.synchronize()
+        zero_counts()
+        with _InsertTap() as tap:
+            res = ab.run_variant(vcfg, scene, poses[:n], device="cuda",
+                                 frames=frames[:n], systems=systems)
+        torch.cuda.synchronize()
+        out[name] = read_counts(f"study variant {name}", n)
+        checks = study_variant_checks(ref, vname, res, systems[0],
+                                      tap.frames, n)
+        failed = [c for c in checks if not c[3]]
+        print(f"study variant {name} [{card}]: {json.dumps(res)}; "
+              f"{res['wall_s'] / n * 1e3:.1f} ms/frame; keyframes at "
+              f"{tap.frames}; "
+              + "; ".join(f"{c[0]} {c[1] if not isinstance(c[1], list) else ''}"
+                          f" ({'held' if c[3] else 'missed'}, limit {c[2] if not isinstance(c[2], list) else 'equal'})"
+                          for c in checks), flush=True)
+        if fault and not failed:
+            fail("study variants: no_reelect with its flag ignored passes "
+                 "every check")
+        if not fault and failed:
+            fail(f"study variant {name}: " + "; ".join(
+                f"{c[0]} {c[1]} (reference {c[2]})" for c in failed))
+    return out
+
+
+def alias_bands(ref, n_events):
+    """Each corridor event's numbers: the farthest that the JAX run's
+    pinned one-ulp noise runs land from it, per key, over the events they
+    share with it."""
+    main = json.loads(str(ref["alias.events"]))[:n_events]
+    spread = [dict() for _ in main]
+    for k in range(int(ref["alias.n_noise"])):
+        ev = json.loads(str(ref[f"alias.noise.{k}.events"]))
+        for i, (e, m) in enumerate(zip(ev, main)):
+            if loop_events([e]) != loop_events([m]):
+                continue
+            for key, v in m.items():
+                if isinstance(v, float) and key != "wall_ms":
+                    spread[i][key] = max(spread[i].get(key, 0.0),
+                                         abs(e[key] - v))
+    return main, spread
+
+
+def alias_event_misses(got, want, spread):
+    """The numbers of an event outside 1e-3 relative and outside
+    ALIAS_NOISE_MARGIN times the reference's spread."""
+    bad = []
+    for key, v in want.items():
+        if not isinstance(v, float) or key == "wall_ms":
+            continue
+        lim = max(1e-9 + ALIAS_RTOL * abs(v),
+                  ALIAS_NOISE_MARGIN * spread.get(key, 0.0))
+        if abs(got.get(key, float("nan")) - v) > lim:
+            bad.append((key, got.get(key), v, lim))
+    return bad
+
+
+def alias_candidate(cfg, cand, fault=None):
+    """The port's _correct_loop on the corridor's recorded first candidate
+    (studies.npz alias.pre.*: map rows, q, l, T12, s12) on the card:
+    (event, accepted)."""
+    import torch
+    from object_slam_tpu_torch import interop
+    from object_slam_tpu_torch.slam.system import SlamSystem
+    sys_ = SlamSystem(cfg, enable_objects=False, enable_loop=True,
+                      device="cuda")
+    lc = sys_.loop_closer
+    if fault is not None:
+        fault(lc)
+    base = interop.map_state_to_numpy(sys_.map)
+    rows = {k[len("alias.pre.m."):]: cand[k] for k in cand.files
+            if k.startswith("alias.pre.m.")}
+    m = interop.map_state_from_numpy(interop.overlay_rows(base, rows),
+                                     device="cuda")
+    _, accepted = lc._correct_loop(
+        m, int(cand["alias.pre.q"]), int(cand["alias.pre.l"]),
+        torch.from_numpy(cand["alias.pre.T12"]).cuda(),
+        float(cand["alias.pre.s12"]))
+    return lc.events[-1], accepted
+
+
+_ALIAS_WORKER = {}
+
+
+def _alias_worker_init(scale):
+    al = script_module("diag_loop_alias_torch")
+    _ALIAS_WORKER["scene"] = al.build_alias_scene(al.build_cfg(scale))
+
+
+def _alias_render(Twc):
+    gray, depth, rgb, _ = _ALIAS_WORKER["scene"].render_rgbd(
+        np.linalg.inv(Twc))
+    return (gray.astype(np.float32), depth.astype(np.float32),
+            rgb.astype(np.float32))
+
+
+def render_corridor(poses_wc, scale=1):
+    """The corridor's frames (float32 gray, depth, rgb) at the
+    camera-to-world poses, rendered by a pool of spawned processes (the
+    scene's numpy draws are seeded, so every worker builds the same
+    corridor)."""
+    import multiprocessing as mp
+    with mp.get_context("spawn").Pool(
+            min(os.cpu_count() or 1, 8), initializer=_alias_worker_init,
+            initargs=(scale,)) as pool:
+        return pool.map(_alias_render, list(poses_wc), chunksize=1)
+
+
+def phase_study_corridor(card):
+    """scripts/diag_loop_alias_torch.py's corridor at --scale 1 (640x480):
+    orb_describe against its plain version on a corridor frame; the
+    corridor through the frames of the JAX CPU run's first rejection
+    (studies_vga.npz alias.depth), objects off, the default pipelined
+    readback, replayed (the JAX run's keyframe decisions and Sim3 draws:
+    flags, keyframes, events (q, l, accepted, pre-gated), loops closed
+    and rejected exact, each event's numbers within 1e-3 relative or
+    ALIAS_NOISE_MARGIN times the JAX run's pinned one-ulp spread) and with
+    its own decisions (no accepted closure; each rejection by the gate
+    the JAX run used, on a candidate within 2 keyframes of one of its
+    events); one orb_describe per frame in each; then the first candidate's
+    recorded input (studies.npz): the pre-gate's event as the
+    reference's, and with the pre-gate disabled (faults.disable_pre_gate,
+    a planted fault that must miss the pre-gated event) the post-gates
+    deciding gate by gate as the reference's with its absolute pre-gate
+    limits lifted. Returns (launches by run, orb_describe's row at the
+    corridor's shapes, the events with their wall ms)."""
+    import torch
+    from object_slam_tpu_torch.eval.ate import ate_rmse
+    from object_slam_tpu_torch.slam.system import SlamSystem
+    sys.path.insert(0, FIXTURES)
+    import faults
+    al = script_module("diag_loop_alias_torch")
+    ref = np.load(STUDIES_REF)
+    cand = np.load(STUDIES_CAND_REF)
+    depth = int(ref["alias.depth"])
+    cfg = al.build_cfg(1)
+    poses_wc = al.straight_path(depth, step=0.2)
+    t0 = time.perf_counter()
+    frames = render_corridor(poses_wc)
+    sums = [float(np.sum(f[0], dtype=np.float64)) for f in frames]
+    if not np.allclose(sums, ref["alias.gray_sum"][:depth], rtol=1e-12,
+                       atol=0):
+        fail("corridor: the rendered frames differ from the reference run's")
+    print(f"corridor: rendered {depth} frames in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ex, levels, corners = main_path_inputs(cfg, frames[depth // 2][0])
+    row = phase_describe(ex, levels, corners, tag="corridor VGA")
+    main_ev, spread = alias_bands(ref, len([
+        f for f in ref["alias.event_frames"].tolist() if f < depth]))
+    ref_kfs = set(ref["alias.insert_frames"].tolist())
+    out, events = {}, {}
+    for name in ("replay", "own"):
+        sys_ = SlamSystem(cfg, enable_objects=False, enable_loop=True,
+                          device="cuda")
+        lc = sys_.loop_closer
+        if name == "replay":
+            sys_._need_keyframe = lambda pend, p: pend["fid"] in ref_kfs
+            sets = [torch.from_numpy(s).cuda() for s in ref["alias.sim3_sets"]]
+            lc._minimal_sets = lambda valid, n_trials=256: sets.pop(0)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        with _InsertTap() as tap:
+            for i, (g, d, rgb) in enumerate(frames):
+                sys_.track_rgbd(g, d, rgb, None, timestamp=i / 30.0)
+            sys_.flush_mapping()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out[name] = read_counts(f"corridor {name}", depth)
+        ev = lc.events
+        events[name] = ev
+        tracked = [r.tracked for r in sys_.trajectory]
+        est = np.stack([np.linalg.inv(r.Tcw)[:3, 3] for r in sys_.trajectory])
+        gt = np.stack([T[:3, 3] for T in poses_wc])
+        ok = np.array(tracked)
+        print(f"corridor {name} [{card}]: {depth} frames, "
+              f"{secs / depth * 1e3:.1f} ms/frame; keyframes at "
+              f"{tap.frames}; events {json.dumps(ev)}; closed "
+              f"{lc.n_loops_closed}, rejected {lc.n_loops_rejected}; ATE "
+              f"{ate_rmse(est[ok], gt[ok]) * 1e3:.3f} mm", flush=True)
+        if lc.n_loops_closed or any(e["accepted"] for e in ev):
+            fail(f"corridor {name}: a false closure was accepted: {ev}")
+        if name == "replay":
+            want_tr = ref["alias.tracked"][:depth].tolist()
+            want_ins = [f for f in ref["alias.insert_frames"].tolist()
+                        if f < depth]
+            bad = []
+            if tracked != want_tr:
+                bad.append(f"tracked flags {tracked}")
+            if tap.frames != want_ins:
+                bad.append(f"keyframes at {tap.frames}, reference "
+                           f"{want_ins}")
+            if loop_events(ev) != loop_events(main_ev):
+                bad.append(f"events {loop_events(ev)}, reference "
+                           f"{loop_events(main_ev)}")
+            if lc.n_loops_rejected != len(main_ev):
+                bad.append(f"rejected {lc.n_loops_rejected}")
+            for e, w, s in zip(ev, main_ev, spread):
+                miss = alias_event_misses(e, w, s)
+                if miss:
+                    bad.append(f"event ({w['q']}, {w['l']}) numbers {miss}")
+            if bad:
+                fail("corridor replay: " + "; ".join(bad))
+        else:
+            jax_ev = json.loads(str(ref["alias.events"]))
+            for e in ev:
+                near = [w for w in jax_ev
+                        if abs(w["q"] - e["q"]) <= 2
+                        and abs(w["l"] - e["l"]) <= 2]
+                if not near or bool(e.get("pre_gated")) != bool(
+                        near[0].get("pre_gated")):
+                    fail(f"corridor own decisions: rejection {e} not by the "
+                         f"gate of a JAX candidate within 2 keyframes "
+                         f"({near})")
+            print(f"corridor own decisions [{card}]: {len(ev)} rejection(s) "
+                  f"{loop_events(ev)}, each by the JAX run's gate on a "
+                  f"candidate within 2 keyframes; no accepted closure",
+                  flush=True)
+    # the first candidate's recorded input: the pre-gate, then the
+    # post-gates behind a disabled pre-gate
+    want_pre = json.loads(str(cand["alias.pre.event"]))
+    ev, acc = alias_candidate(cfg, cand)
+    miss = alias_event_misses(ev, want_pre, {})
+    if acc or loop_events([ev]) != loop_events([want_pre]) or miss:
+        fail(f"corridor candidate: pre-gate event {ev} against {want_pre} "
+             f"({miss})")
+    post, acc = alias_candidate(cfg, cand, fault=faults.disable_pre_gate)
+    want_post = json.loads(str(cand["alias.postgate.event"]))
+    if loop_events([post]) == loop_events([want_pre]):
+        fail("corridor candidate: with the pre-gate disabled the event "
+             "still reads pre-gated")
+
+    def gates(e):
+        loop = cfg.loop
+        return (e["q_after"] <= e["q_before"]
+                * (1.0 + loop.benefit_gate_tolerance)
+                + loop.benefit_gate_abs_floor,
+                e["bend_deg"] <= e["budget_deg"],
+                e["bend_frac"] <= e["budget_frac"])
+    print(f"corridor candidate [{card}]: pre-gate {json.dumps(ev)}; with "
+          f"the pre-gate disabled {json.dumps(post)} (the reference "
+          f"{json.dumps(want_post)}); gates (benefit, bend deg, bend frac) "
+          f"{gates(post)} against {gates(want_post)}", flush=True)
+    if acc or gates(post) != gates(want_post):
+        fail("corridor candidate: the post-gates decide otherwise than the "
+             "reference's")
+    return out, row, events
+
+
+def study_sem_dir():
+    """A STUDY_SEM_FRAMES-frame make_synth_tum_torch.py directory under
+    build/studies_smoke/ (the first frames of the reference's 40-frame
+    directory: orbit poses do not depend on the count)."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "studies_smoke", "tum")
+    if os.path.isdir(root):
+        import shutil
+        shutil.rmtree(root)
+    script_module("make_synth_tum_torch").write(root,
+                                                frames=STUDY_SEM_FRAMES)
+    return root
+
+
+def phase_study_semantic(card):
+    """scripts/diag_semopt_torch.py's probe and
+    scripts/diag_semopt_ragged_torch.py's A/B at SlamConfig.tum_rgbd() on
+    a STUDY_SEM_FRAMES-frame TUM directory, held to the JAX CPU runs of
+    the same frames (studies_vga.npz): the probe's frames, each frame's
+    pose before and after the refinement within 2 mm / 0.1 deg, the
+    summary's keys and frame count exact and its millimetres within 2 mm,
+    the census exact; then the probe with the pose before the refinement
+    thrown away (a planted fault), which must fail; the ragged
+    masks bit-equal to the reference's (and with another seed, a planted
+    fault, not), both arms after the script's 12-frame prewarm: flags,
+    keyframes, counts and census exact, records within 2 mm / 0.1 deg,
+    points and constraints within 10%. One orb_describe per frame in each
+    run. Returns the launches of each run."""
+    import torch
+    from object_slam_tpu_torch.config import SlamConfig
+    from object_slam_tpu_torch.datasets import tum
+    sem_mod = script_module("diag_semopt_torch")
+    rag_mod = script_module("diag_semopt_ragged_torch")
+    rex = script_module("run_experiments_torch")
+    ref = np.load(STUDIES_REF)
+    seq = study_sem_dir()
+    cfg = SlamConfig.tum_rgbd()
+    metas, frames = rex.load_tum_frames(seq, cfg, STUDY_SEM_FRAMES)
+    ts_gt, pos_gt, _ = tum.load_groundtruth(seq)
+    gt = {round(t, 4): p for t, p in zip(ts_gt, pos_gt)}
+    out = {}
+
+    def census(sys_):
+        m = sys_.map
+        lab, cnt = np.unique(m.obj_label[m.obj_valid].cpu().numpy(),
+                             return_counts=True)
+        return lab.tolist(), cnt.tolist()
+
+    def probe(n, fault=False):
+        from object_slam_tpu_torch.slam import objects as obj_mod
+        orig = obj_mod.ObjectEngine.track_local_map_semantic
+        if fault:
+            def thrown_away(self, m, frame, tr):
+                return orig(self, m, frame, tr)[:3] + (None,)
+            obj_mod.ObjectEngine.track_local_map_semantic = thrown_away
+        try:
+            systems = []
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            deltas, poses, summ = sem_mod.run_probe(
+                cfg, metas[:n], frames[:n], gt, device="cuda", log_every=0,
+                systems=systems)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            obj_mod.ObjectEngine.track_local_map_semantic = orig
+        bad = []
+        want_frames = [f for f in ref["semopt.frames"].tolist() if f < n]
+        if [i for i, _, _ in poses] != want_frames:
+            bad.append(f"frames {[i for i, _, _ in poses]}")
+        for (i, pre, post), wpre, wpost in zip(
+                poses, ref["semopt.pre_tcw"], ref["semopt.post_tcw"]):
+            for tag, a, b in (("pre", pre, wpre), ("post", post, wpost)):
+                d = float(np.abs(a[:3, 3] - b[:3, 3]).max())
+                if d > STUDY_REC_M or _rot_deg(a, b) > STUDY_REC_DEG:
+                    bad.append(f"frame {i} {tag} {d:.6f} m "
+                               f"{_rot_deg(a, b):.4f} deg")
+        return systems[0], summ, secs, bad
+
+    sys_, summ, secs, bad = probe(STUDY_SEM_FRAMES)
+    out["semopt"] = read_counts("semopt probe", STUDY_SEM_FRAMES)
+    want = json.loads(str(ref["semopt.summary"]))
+    if set(summ) != set(want) or \
+            summ["n_semopt_frames"] != want["n_semopt_frames"]:
+        bad.append(f"summary {summ}")
+    bad += [f"{k} {summ[k]} against {v}" for k, v in want.items()
+            if k.endswith("_mm") and abs(summ[k] - v) > STUDY_REC_M * 1e3]
+    if census(sys_) != (ref["semopt.census_labels"].tolist(),
+                        ref["semopt.census_counts"].tolist()):
+        bad.append(f"census {census(sys_)}")
+    print(f"semopt probe [{card}]: {STUDY_SEM_FRAMES} frames, "
+          f"{secs / STUDY_SEM_FRAMES * 1e3:.1f} ms/frame; {json.dumps(summ)} "
+          f"(JAX CPU {json.dumps(want)}); census {census(sys_)}", flush=True)
+    if bad:
+        fail("semopt probe: " + "; ".join(bad))
+    _, _, _, bad = probe(STUDY_SEM_FAULT_FRAMES, fault=True)
+    out["semopt_fault"] = read_counts("semopt probe fault",
+                                      STUDY_SEM_FAULT_FRAMES)
+    if not bad:
+        fail("semopt probe: the pre-refinement pose thrown away passes "
+             "every check")
+    print(f"semopt probe fault [{card}]: misses {bad[:2]}", flush=True)
+
+    ragged, n_deg = rag_mod.degrade(cfg, frames)
+    masks = np.concatenate([r[2][0].reshape(-1) for r in ragged
+                            if r[2] is not None])
+    if not np.array_equal(masks, ref["ragged.ragged_masks"]):
+        fail("ragged masks differ from the reference's")
+    other, _ = rag_mod.degrade(cfg, frames, seed=12)
+    if np.array_equal(np.concatenate([r[2][0].reshape(-1) for r in other
+                                      if r[2] is not None]),
+                      ref["ragged.ragged_masks"]):
+        fail("ragged masks: another seed's masks pass the check")
+    systems = []
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = rag_mod.run_arms(seq, cfg, ragged, metas, device="cuda",
+                           systems=systems)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n_run = 2 * rag_mod.PREWARM_FRAMES + 2 * STUDY_SEM_FRAMES
+    out["ragged"] = read_counts("ragged arms", n_run)
+    bad = []
+    for (name, r), sys_ in zip(res.items(), systems):
+        p = f"ragged.{name}."
+        w = json.loads(str(ref[p + "result"]))
+        if set(r) - {"fps", "median_track_ms"} != set(w):
+            bad.append(f"{name} keys {sorted(r)}")
+        for k in ("frames", "tracked", "keyframes", "objects"):
+            if r[k] != w[k]:
+                bad.append(f"{name} {k} {r[k]} against {w[k]}")
+        for k in ("points", "semantic_constraints"):
+            if abs(r[k] - w[k]) > 0.1 * w[k]:
+                bad.append(f"{name} {k} {r[k]} against {w[k]}")
+        if [x.tracked for x in sys_.trajectory] != \
+                ref[p + "tracked"].tolist():
+            bad.append(f"{name} tracked flags")
+        d = max(float(np.abs(x.Tcw[:3, 3] - y[:3, 3]).max())
+                for x, y in zip(sys_.trajectory, ref[p + "rec_tcw"]))
+        a = max(_rot_deg(x.Tcw, y)
+                for x, y in zip(sys_.trajectory, ref[p + "rec_tcw"]))
+        if d > STUDY_REC_M or a > STUDY_REC_DEG:
+            bad.append(f"{name} records {d:.6f} m {a:.4f} deg")
+        if census(sys_) != (ref[p + "census_labels"].tolist(),
+                            ref[p + "census_counts"].tolist()):
+            bad.append(f"{name} census {census(sys_)}")
+        print(f"ragged {name} [{card}]: {json.dumps(r)} (JAX CPU "
+              f"{json.dumps(w)}); records within {d * 1e3:.3f} mm / "
+              f"{a:.4f} deg", flush=True)
+    print(f"ragged arms [{card}]: {n_deg} masks degraded; {n_run} frames "
+          f"with the prewarm in {secs:.1f} s", flush=True)
+    if bad:
+        fail("ragged arms: " + "; ".join(bad))
+    return out
+
+
+def studies_child_main(out_json: str):
+    """The fourth process: the accuracy studies (phase_study_variants,
+    phase_study_corridor, phase_study_semantic) on the card, then the
+    kidnap with loop closing on (phase_kidnap_loop); the launches by
+    phase, the phase seconds and orb_describe's row at the corridor's
+    shapes written to out_json."""
+    import torch
+    from object_slam_tpu_torch.ops import build
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    build.load_all(KERNELS)
+    card = card_line()
+    by_phase = {}
+    var = phase_timed("study_variants", phase_study_variants, card)
+    by_phase.update({f"study_variant_{k}": v for k, v in var.items()})
+    cor, row, _ = phase_timed("study_corridor", phase_study_corridor, card)
+    by_phase.update({f"study_corridor_{k}": v for k, v in cor.items()})
+    sem = phase_timed("study_semantic", phase_study_semantic, card)
+    by_phase.update({f"study_{k}": v for k, v in sem.items()})
+    # the kidnap with loop closing on (7b) runs here, beside the main
+    # process's other phases, for the time limit
+    by_phase["kidnap_loop"], _ = phase_timed("kidnap_loop",
+                                             phase_kidnap_loop, card)
+    with open(out_json, "w") as f:
+        json.dump({"by_phase": by_phase, "phase_s": PHASE_S,
+                   "corridor_row": {k: row[k] for k in (
+                       "max_abs_err", "ms", "device_ms", "plain_ms",
+                       "bound_ms", "bound_by")}}, f)
 
 
 PHASE_S = {}
@@ -4126,8 +4813,6 @@ def loop_phases(by_phase, card):
     for k, v in circ.items():
         by_phase[f"loop_circuit_{k}"] = v
     phase_timed("loop_controls", phase_loop_controls, card, poses, frames)
-    by_phase["kidnap_loop"], _ = phase_timed("kidnap_loop",
-                                             phase_kidnap_loop, card)
 
 
 T_START = time.perf_counter()
@@ -4138,6 +4823,8 @@ def main():
         return mono_child_main(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == TOOLS_ARG:
         return tools_child_main(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == STUDIES_ARG:
+        return studies_child_main(sys.argv[2])
     try:
         import torch
     except ImportError:
@@ -4163,6 +4850,7 @@ def main():
     # offline tools in a third
     child = start_child()
     tools = start_child(TOOLS_ARG, "chip_smoke_tools")
+    studies = start_child(STUDIES_ARG, "chip_smoke_studies")
 
     cfg = tum_cfg()
     t0 = time.perf_counter()
@@ -4190,10 +4878,6 @@ def main():
                         card, strict_ms)
     by_phase["bench_host_in_the_loop"] = bench["host"][0]
     by_phase["bench_device_resident"] = bench["device"][0]
-    kid = phase_timed("kidnap", phase_kidnap, main_cfg,
-                      card)
-    by_phase["kidnap_replay"] = kid["replay"]
-    by_phase["kidnap_own_sampler"] = kid["own"]
     # the driver (decoding through its prefetcher), then its directory
     # decoded by the prefetcher against the PNG reader, and --viz-dir
     by_phase["tum_driver"] = phase_timed(
@@ -4214,6 +4898,9 @@ def main():
         "driver, KITTI)", "second.")["kitti_row"]
     tres = finish_child(tools, by_phase, "third (generators, experiment "
                         "battery, vocabulary and BRIEF trainers)", "third.")
+    rows[1]["corridor"] = finish_child(
+        studies, by_phase, "fourth (the accuracy studies: mapping variants, "
+        "aliased corridor, semantic probes)", "fourth.")["corridor_row"]
     # extract_patches runs on the BRIEF-pattern learner's path: its row
     # holds that path's launches and its numbers at the harvest's shapes
     # (one render's launches); the main-path frame's 16 windows per level
@@ -4232,7 +4919,7 @@ def main():
         for k in timed:
             if not (isinstance(row[k], float) and math.isfinite(row[k])):
                 fail(f"{row['name']} row field {k} is not a finite number")
-        for shape in ("kitti", "euroc", "tum_frame"):
+        for shape in ("kitti", "euroc", "tum_frame", "corridor"):
             for k, v in row.get(shape, {}).items():
                 if k != "bound_by" and not (isinstance(v, float)
                                             and math.isfinite(v)):

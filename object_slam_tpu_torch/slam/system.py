@@ -282,6 +282,10 @@ class SlamSystem:
         self._host_ts = 0.0
         self._fused_pending = None   # the lagged fused readback
         self._mono_ref = None        # mono: the initializer's first view
+        # the pose before the semantic refinement of the last frame that
+        # took the staged objects-on branch (a tensor on the device), else
+        # None; cleared at every frame's start
+        self._last_presem_Tcw = None
         # the RANSAC sampler's stream (the reference's PRNGKey(0))
         self.rng = torch.Generator(device=self.device)
         self.rng.manual_seed(0)
@@ -469,6 +473,7 @@ class SlamSystem:
         return frame
 
     def _track(self, frame: FrameData):
+        self._last_presem_Tcw = None
         fused = self.cfg.tracking.fused and self.enable_mapping
         if self.state == OK and fused:
             # dispatch BEFORE resolving the previous frame's lagged readback;
@@ -677,7 +682,7 @@ class SlamSystem:
                 if self.objects is not None and bool(
                         torch.any(frame.obj3d >= 0)):
                     with self._span("semopt"):
-                        tr2, self.map, n_sem, _ = \
+                        tr2, self.map, n_sem, self._last_presem_Tcw = \
                             self.objects.track_local_map_semantic(
                                 self.map, frame, tr)
                     n_inl, n_sem = self._counts(tr2.n_inliers, n_sem)

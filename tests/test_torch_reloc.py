@@ -127,7 +127,16 @@ def test_pnp_ransac_with_injected_sets_matches_jax(seed):
     PNP_TIE_INLIERS, the polished poses within 1 mm / 1e-3 rad of each
     other and 1 cm of the truth, the polished counts within
     PNP_TIE_INLIERS. 80% inliers at 0.3 px noise; the inliers are true
-    correspondences either way."""
+    correspondences either way.
+
+    How far a score may part is the reference's own: every set's score
+    lies within its envelope, the least and greatest score the reference
+    gives that set over 1024 one-ulp perturbations of the pixels and the
+    recorded run (make_reference.py pnp_cases_noise). The port's f32 DLT
+    solves in its own order, as another host's XLA:CPU does, so an
+    ill-conditioned set scores anywhere in that envelope; the 200-odd sets
+    whose scores one ulp does not move must score exactly as the
+    reference's."""
     fx = np.load(PNP_FIXTURE)
     pw, uv, valid, T, good = correspondences(seed)
     jidx = fx[f"{seed}.idx"]
@@ -139,6 +148,10 @@ def test_pnp_ransac_with_injected_sets_matches_jax(seed):
             torch.from_numpy(valid))
     got = epnp.pnp_ransac_sets(torch.from_numpy(jidx), *args, min_inliers=25)
     scores = epnp.hypothesis_scores(torch.from_numpy(jidx), *args)[2].numpy()
+    lo, hi = fx[f"{seed}.scores_lo"], fx[f"{seed}.scores_hi"]
+    outside = np.flatnonzero((scores < lo) | (scores > hi))
+    assert not len(outside), [(int(i), int(scores[i]), int(lo[i]),
+                               int(hi[i])) for i in outside]
     assert bool(got.ok)
     assert _pose_close(got.Tcw.numpy(), T, tol=1e-2)
     assert (good | ~got.inliers.numpy()).all()
@@ -148,7 +161,7 @@ def test_pnp_ransac_with_injected_sets_matches_jax(seed):
         assert int(got.n_inliers) == want_n
         assert _pose_close(got.Tcw.numpy(), want_T)
         return
-    assert scores[jbest] == jscores[jbest]
+    assert lo[jbest] <= scores[jbest] <= hi[jbest]
     assert 0 <= scores.max() - jscores.max() <= PNP_TIE_INLIERS
     assert abs(int(got.n_inliers) - want_n) <= PNP_TIE_INLIERS
     assert _pose_close(got.Tcw.numpy(), want_T, tol=1e-3)

@@ -1,7 +1,8 @@
-"""Faults planted in the port's sharded BA, each of which a check must
-catch (tests/test_torch_parallel.py, chip_smoke.py). Each is a rank setup
-function for parallel/sharded_ba.py::spawn_sharded_global_ba: module
-level, so that a spawned rank can import it."""
+"""Faults planted in the port, each of which a check must catch: in the
+sharded BA (tests/test_torch_parallel.py, chip_smoke.py; each a rank
+setup function for parallel/sharded_ba.py::spawn_sharded_global_ba,
+module level so that a spawned rank can import it), and in the accuracy
+studies (tests/test_torch_studies*.py, chip_smoke.py)."""
 
 
 def skip_point_reduce(rank: int, world: int):
@@ -17,3 +18,23 @@ def skip_point_reduce(rank: int, world: int):
         k, _, c = reduce(self, kf=kf, pt=pt, cost=cost)
         return k, [p.clone() for p in pt], c
     sharded_ba.ObsShard.reduce = partial
+
+
+def ignore_reelect_flag(cfg):
+    """The mapping ignores cfg.mapping.reelect_descriptors: the
+    configuration a no_reelect run then runs under (the flag at its
+    default, descriptors re-elected)."""
+    import dataclasses
+    return cfg.replace(mapping=dataclasses.replace(
+        cfg.mapping, reelect_descriptors=True))
+
+
+def disable_pre_gate(lc):
+    """A LoopCloser whose pre-gate never refuses: every verified candidate
+    runs the full speculative correction and meets the post-gates only."""
+    pre_gate = lc.pre_gate
+
+    def never(m, q, l, T12):
+        return dict(pre_gate(m, q, l, T12), pre_gated=False)
+    lc.pre_gate = never
+    return lc

@@ -49,7 +49,9 @@ inputs and outputs are recorded here once and committed:
   (make_sequence_state, seeds 0-3) through BatchedTracker.step, inputs and
   outputs;
 * ``pnp_cases.npz``: jepnp.pnp_ransac on pnp_cases.correspondences (its
-  sets, hypothesis scores and result); ``kitti_pass_noise`` adds 16
+  sets, hypothesis scores and result; ``pnp_cases_noise`` adds every
+  set's score envelope under 1024 one-ulp perturbations of the pixels);
+  ``kitti_pass_noise`` adds 16
   one-ulp trials of the JAX local BA rerun on this machine to
   ``kitti_pass.npz``, ``loop_small_noise`` the closer events of four
   one-ulp noise runs of the small circuit to ``loop_small.npz``;
@@ -59,6 +61,17 @@ inputs and outputs are recorded here once and committed:
   (train_vocab.py; ``vocab_counts`` adds each render's row count of the
   full harvest), ``brief.npz`` (train_brief_pattern.py's harvest, and
   its main() on brief_cases.integer_corpus with the save intercepted);
+* ``studies.npz`` and ``studies_vga.npz`` (``studies``): the accuracy
+  studies of scripts/ through their own functions or their loops
+  verbatim: ab_deviations.py's four mapping variants (at scale 4 with
+  strict readback, the state after frame 0 and the first mapping pass
+  after it; at VGA on 40 frames of the circuit), diag_loop_alias.py's
+  corridor at VGA (320 frames; the first pre-gated candidate's input, the
+  post-gates on it with the pre-gate's absolute limits lifted, three
+  pinned one-ulp noise runs over the frames chip_smoke.py replays),
+  diag_loop.py's closure probe on loop_small's circuit, and
+  diag_semopt.py / diag_semopt_ragged.py on the object-stability scene
+  and on make_synth_tum.py's directory at tum_rgbd (24 frames);
 * ``object_slam_tpu_torch/features/xla_resize.npz`` (``xla_resize``): how
   XLA:CPU computes jax.image.resize for the TUM-VGA pyramid (its weights
   and each product's summation order), which the port's pyramid executes.
@@ -70,9 +83,11 @@ slices' parts listed in main()):
         [tum_vga] [pipelined] [kidnap] [pipelined_tum_vga] [kidnap_tum_vga]
         [stereo] [kitti_stereo] [mono_small] [mono_euroc]
         [localization_small] [localization_tum_vga] [euroc_driver]
-        [parallel] [batched] [pnp_cases] [kitti_pass_noise]
+        [parallel] [batched] [pnp_cases] [pnp_cases_noise]
+        [kitti_pass_noise]
         [loop_small_noise[:noise<k>|:merge]] [experiments]
         [experiments_tiny] [xla_resize] [vocab] [vocab_counts] [brief]
+        [studies[:<part>]]
 
 slice1, objects and tum_vga use ``pipelined_readback=False``. The rendered
 inputs' checksums are stored so that the tests can prove they re-render
@@ -2348,6 +2363,66 @@ def record_pnp_cases():
           flush=True)
 
 
+PNP_NOISE_TRIALS = 1024
+
+
+def pnp_scores(K, pw, uv, valid, idx):
+    """Every hypothesis's score as jepnp.pnp_ransac computes it
+    (epnp.py:80-92) on the index sets ``idx``."""
+    from object_slam_tpu.solvers import epnp as jepnp
+    pwj, uvj, vj = jnp.asarray(pw), jnp.asarray(uv), jnp.asarray(valid)
+    xn = jnp.stack([(uvj[..., 0] - K.cx) / K.fx,
+                    (uvj[..., 1] - K.cy) / K.fy], -1)
+    T = jepnp.dlt_pose(pwj[idx], xn[idx])
+    pc = jnp.einsum('tij,nj->tni', T[:, :3, :3], pwj) + T[:, None, :3, 3]
+    z = pc[..., 2]
+    u = K.fx * pc[..., 0] / jnp.maximum(z, 1e-6) + K.cx
+    v = K.fy * pc[..., 1] / jnp.maximum(z, 1e-6) + K.cy
+    chi2 = (u - uvj[None, :, 0]) ** 2 + (v - uvj[None, :, 1]) ** 2
+    return np.asarray(jnp.sum((chi2 < 5.991) & (z > 0) & vj[None, :],
+                              axis=-1)).astype(np.int32)
+
+
+def record_pnp_cases_noise():
+    """The reference's one-ulp spread of every hypothesis's score: for each
+    seed, the scores of pnp_cases.npz's recorded index sets recomputed
+    PNP_NOISE_TRIALS times, each with every pixel coordinate moved by one
+    float32 ulp up, down or not at all (RandomState(trial)). Adds to
+    pnp_cases.npz "<seed>.scores_lo" / "<seed>.scores_hi", each set's
+    least and greatest score over the trials and the recorded run (the
+    envelope), and "<seed>.scores_rerun", the noise-free scores on this
+    machine."""
+    import pnp_cases
+    K = Intrinsics(**pnp_cases.TUM)
+    out = dict(np.load(OUT_PNP))
+    for seed in pnp_cases.SEEDS:
+        pw, uv, valid, _, _ = pnp_cases.correspondences(seed)
+        idx = jnp.asarray(out[f"{seed}.idx"])
+        rerun = pnp_scores(K, pw, uv, valid, idx)
+        trials = []
+        for t in range(PNP_NOISE_TRIALS):
+            step = np.random.RandomState(t).randint(-1, 2, uv.shape)
+            uv_t = np.where(step > 0, np.nextafter(uv, np.float32(np.inf)),
+                            np.where(step < 0,
+                                     np.nextafter(uv, np.float32(-np.inf)),
+                                     uv)).astype(np.float32)
+            trials.append(pnp_scores(K, pw, uv_t, valid, idx))
+        trials = np.stack(trials)
+        rec = out[f"{seed}.scores"]
+        lo = np.minimum(trials.min(0), rec)
+        hi = np.maximum(trials.max(0), rec)
+        out[f"{seed}.scores_lo"] = lo.astype(np.int32)
+        out[f"{seed}.scores_hi"] = hi.astype(np.int32)
+        out[f"{seed}.scores_rerun"] = rerun
+        print(f"pnp seed {seed}: the rerun differs from the recorded scores "
+              f"on {int((rerun != rec).sum())} sets; {PNP_NOISE_TRIALS} "
+              f"one-ulp trials move {int((hi > lo).sum())} of {len(rec)} "
+              f"sets' scores, by up to {int((hi - lo).max())}", flush=True)
+    np.savez_compressed(OUT_PNP, **out)
+    print(f"wrote {OUT_PNP}: {os.path.getsize(OUT_PNP) / 1e3:.1f} kB",
+          flush=True)
+
+
 def record_kitti_pass_noise():
     """The JAX local BA of kitti_pass.npz once more on its recorded input
     (on this machine: how far from the recorded output it lands), then
@@ -2936,6 +3011,720 @@ def record_xla_resize():
           f"{OUT_XLA_RESIZE_CHECK}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the accuracy studies of scripts/ (ab_deviations.py, diag_loop.py,
+# diag_loop_alias.py, diag_semopt.py, diag_semopt_ragged.py), their
+# reference runs on the CPU
+# ---------------------------------------------------------------------------
+
+OUT_STUDIES = os.path.join(HERE, "studies.npz")
+OUT_STUDIES_VGA = os.path.join(HERE, "studies_vga.npz")
+STUDIES_DIR = os.path.join(HERE, "..", "..", "build", "studies")
+STUDY_VARIANTS = ("base", "recency_off", "no_reelect", "scale_cond_on")
+# the CPU tests' variant runs (scale 4, strict readback): the first
+# VAR_SMALL_END frames of the 120-frame circuit, the port starting from the
+# JAX system's state after frame VAR_SMALL_START - 1
+VAR_SMALL_START, VAR_SMALL_END = 1, 5
+# chip_smoke.py's variant runs: scale 1 (VGA), the script's default
+# pipelined readback, the first VAR_VGA_FRAMES frames of the circuit
+VAR_VGA_FRAMES = 40
+# the VGA variants' pinned one-ulp noise runs (the circuit is chaotic:
+# the card's base run parts from the JAX CPU run by 33 mm / 0.84 deg on
+# the same keyframes)
+VAR_NOISE_RUNS = 2
+# the corridor at VGA (diag_loop_alias.py's defaults at --scale 1) and the
+# pinned one-ulp noise runs over the frames chip_smoke.py replays
+ALIAS_FRAMES = 320
+ALIAS_NOISE_RUNS = 3
+# the semantic probes: the first SEM_VGA_FRAMES frames of the 40-frame
+# make_synth_tum.py directory at SlamConfig.tum_rgbd(); on the CPU the
+# object-stability scene (objects_cfg, SEM_SMALL_FRAMES frames)
+SEM_VGA_FRAMES = 24
+SEM_SMALL_FRAMES = 8
+RAGGED_SEED, RAGGED_SHIFT = 11, 2
+
+
+def study_part_path(part):
+    os.makedirs(STUDIES_DIR, exist_ok=True)
+    return os.path.join(STUDIES_DIR, part.replace(":", "_") + ".npz")
+
+
+def plain_state(sys_):
+    """A JAX system's whole state after a frame, loop closing off (strict
+    readback, sync mapping): system_state without the closer."""
+    from object_slam_tpu.slam.map_state import init_map
+    assert sys_._fused_pending is None and sys_._async is None
+    base = init_map(sys_.cfg.caps, sys_.cfg.objects.history_capacity)
+    fr = sys_.last_frame
+    st = {f"m.{k}": v for k, v in compact_map(
+        {f: np.asarray(getattr(sys_.map, f)) for f in MapState._fields},
+        {f: np.asarray(getattr(base, f)) for f in MapState._fields}).items()}
+    st.update({f"last.{f}": np.asarray(getattr(fr, f)) for f in FRAME_FIELDS})
+    st.update({
+        "velocity": np.asarray(sys_.velocity, np.float32),
+        "counters": np.asarray([sys_.state, sys_.last_kf_id,
+                                sys_.frames_since_kf, sys_.frame_id,
+                                getattr(sys_, "_kf_inliers", 0),
+                                getattr(sys_, "_last_n_inliers", -1)],
+                               np.int64),
+        "rec_tcw": np.stack([r.Tcw for r in sys_.trajectory]).astype(
+            np.float32),
+        "rec_ref": np.asarray([r.ref_kf for r in sys_.trajectory], np.int32),
+        "rec_tcr": np.stack([r.Tcr for r in sys_.trajectory]).astype(
+            np.float32),
+        "rec_tracked": np.asarray([r.tracked for r in sys_.trajectory])})
+    return st
+
+
+def pinned_noise(sys_, seed, pin_frames):
+    """One-ulp noise (ulp_noise, seed) in every local-mapping pass's input,
+    with the keyframe decisions of every fused resolve pinned to
+    pin_frames (run_loop's pin): the reference's own spread on the same
+    decisions."""
+    ulp_noise(sys_, seed)
+    pin = set(int(f) for f in pin_frames)
+    resolve_one = sys_._resolve_one
+
+    def resolve(pend, latest):
+        p = np.array(np.asarray(pend["packed"]))
+        p[49], p[57] = 0.0, float(pend["fid"] in pin)
+        return resolve_one(dict(pend, packed=p), latest)
+    sys_._resolve_one = resolve
+
+
+def recording_systems(capture=None, noise=None):
+    """A SlamSystem subclass that keeps every instance, the frames a
+    keyframe was inserted on, the frames track_rgbd returned (pose, flag)
+    and, after frame ``capture``, plain_state and the first local-mapping
+    pass from frame ``capture`` + 1 on (its input and output map rows,
+    keyframe and schedule); noise (seed, frames): pinned_noise on each
+    instance: (class, instances)."""
+    from object_slam_tpu.slam.map_state import init_map
+    made = []
+
+    class Recorded(SlamSystem):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+            if noise is not None:
+                pinned_noise(self, *noise)
+            self.rec_inserts, self.rec_ret, self.rec_held = [], [], {}
+            jit_insert = self._jit_insert
+
+            def insert(m, frame, Tcw, kp_pt, spawn, fid):
+                self.rec_inserts.append(int(fid))
+                return jit_insert(m, frame, Tcw, kp_pt, spawn, fid)
+            self._jit_insert = insert
+            if capture is None:
+                return
+            base = {f: np.asarray(getattr(init_map(
+                self.cfg.caps, self.cfg.objects.history_capacity), f))
+                for f in MapState._fields}
+
+            def rows(m):
+                return compact_map({f: np.asarray(getattr(m, f))
+                                    for f in MapState._fields}, base)
+            for attr, fast in (("_jit_mapping", False),
+                               ("_jit_mapping_fast", True)):
+                fn = getattr(self, attr)
+
+                def mapping(m, kf_id, fn=fn, fast=fast):
+                    out = fn(m, kf_id)
+                    if (self.frame_id > capture
+                            and "pass.kf" not in self.rec_held):
+                        self.rec_held.update(
+                            {f"pass.in.{k}": v for k, v in rows(m).items()})
+                        self.rec_held.update(
+                            {f"pass.out.{k}": v
+                             for k, v in rows(out).items()})
+                        self.rec_held["pass.kf"] = np.int32(kf_id)
+                        self.rec_held["pass.fast"] = np.bool_(fast)
+                    return out
+                setattr(self, attr, mapping)
+
+        def track_rgbd(self, *a, **kw):
+            f = super().track_rgbd(*a, **kw)
+            self.rec_ret.append((np.asarray(f.Tcw, np.float32),
+                                 bool(f.pose_ok)))
+            if capture is not None and self.frame_id - 1 == capture:
+                self.rec_held.update(plain_state(self))
+            return f
+    return Recorded, made
+
+
+def record_study_variant(part):
+    """part "var_small:<name>" / "var_vga:<name>": ab_deviations.py's
+    run_variant for variant <name> on the circuit's first frames (see
+    VAR_SMALL_* / VAR_VGA_FRAMES), with the SlamSystem class wrapped: its
+    result, every frame's returned pose and flag, the keyframe frames, the
+    trajectory records and, for var_small, the state the port starts
+    from."""
+    import object_slam_tpu.slam.system as jsys
+    ab = load_script("ab_deviations")
+    kind, name = part.split(":")[:2]
+    small = kind == "var_small"
+    noise = None
+    if kind == "var_vga_noise":
+        # part "var_vga_noise:<name>:<k>": the VGA run under one-ulp noise
+        # (seed k) with var_vga:<name>'s keyframe decisions pinned
+        main = np.load(study_part_path(f"var_vga:{name}"))
+        noise = (int(part.split(":")[2]), main["insert_frames"])
+    cfg = ab.build_cfg(4 if small else 1)
+    if small:
+        cfg = cfg.replace(tracking=dataclasses.replace(
+            cfg.tracking, pipelined_readback=False))
+    from object_slam_tpu.config import MappingConfig
+    vcfg = cfg.replace(mapping=dataclasses.replace(
+        MappingConfig(), **ab.VARIANTS[name]))
+    n = VAR_SMALL_END if small else VAR_VGA_FRAMES
+    poses = loop_poses()[:n]
+    Recorded, made = recording_systems(
+        VAR_SMALL_START - 1 if small else None, noise=noise)
+    orig, jsys.SlamSystem = jsys.SlamSystem, Recorded
+    try:
+        res = ab.run_variant(vcfg, loop_scene(cfg), list(poses))
+    finally:
+        jsys.SlamSystem = orig
+    sys_ = made[-1]
+    sys_._resolve_fused_pending()
+    out = {"result": np.asarray(json.dumps(res)),
+           "ret_tcw": np.stack([t for t, _ in sys_.rec_ret]),
+           "ret_ok": np.asarray([ok for _, ok in sys_.rec_ret]),
+           "insert_frames": np.asarray(sys_.rec_inserts, np.int32),
+           "tracked": np.asarray([r.tracked for r in sys_.trajectory]),
+           "rec_tcw": np.stack([r.Tcw for r in sys_.trajectory]).astype(
+               np.float32),
+           "n_points": np.int32(sys_.n_points),
+           "n_keyframes": np.int32(sys_.n_keyframes)}
+    out.update({f"state.{k}": v for k, v in sys_.rec_held.items()})
+    print(f"{part}: {json.dumps(res)}; keyframes at {sys_.rec_inserts}",
+          flush=True)
+    np.savez_compressed(study_part_path(part), **out)
+
+
+def alias_setup():
+    """diag_loop_alias.py's corridor at --scale 1 (its defaults otherwise):
+    (cfg, scene, Tcw poses)."""
+    ab = load_script("ab_deviations")
+    al = load_script("diag_loop_alias")
+    cfg = ab.build_cfg(1)
+    scene = al.build_alias_scene(cfg, period=3.2, n_periods=16, seed=7)
+    poses = np.stack([np.linalg.inv(T) for T in
+                      al.straight_path(ALIAS_FRAMES, step=0.2)])
+    return cfg, scene, poses
+
+
+def record_study_alias(part):
+    """part "alias:main": the corridor through run_loop (objects off,
+    track_rgbd, the default pipelined readback: diag_loop_alias.run_alias's
+    calls) over ALIAS_FRAMES frames, with the inputs of the first closure
+    the pre-gate refuses and of the first the post-gates refuse (map rows,
+    q, l, T12, s12). "alias:pin<k>": one-ulp noise (seed k) with main's
+    keyframe decisions and Sim3 draws pinned, over alias_depth's
+    frames."""
+    from object_slam_tpu.loop import loop_closing as jloop
+    from object_slam_tpu.slam.map_state import init_map
+    cfg, scene, poses = alias_setup()
+    kind = part.split(":")[1]
+    inputs, out_extra = {}, {}
+    orig = jloop.LoopCloser._correct_loop
+
+    def correct_loop(lc, m, q, l, T12, s12):
+        n_ev = len(lc.events)
+        arrays = {f: np.asarray(getattr(m, f)) for f in MapState._fields}
+        res = orig(lc, m, q, l, T12, s12)
+        ev = lc.events[n_ev] if len(lc.events) > n_ev else None
+        if ev is not None and not ev["accepted"]:
+            tag = "pre" if ev.get("pre_gated") else "post"
+            if tag not in inputs:
+                base = init_map(lc.cfg.caps, lc.cfg.objects.history_capacity,
+                                n_bow_words=lc.vocab.n_words)
+                rows = compact_map(arrays, {f: np.asarray(getattr(base, f))
+                                            for f in MapState._fields})
+                inputs[tag] = True
+                out_extra.update({f"{tag}.m.{k}": v for k, v in rows.items()})
+                out_extra.update({
+                    f"{tag}.q": np.int32(q), f"{tag}.l": np.int32(l),
+                    f"{tag}.T12": np.asarray(T12, np.float32),
+                    f"{tag}.s12": np.float32(s12),
+                    f"{tag}.event": np.asarray(json.dumps(ev)),
+                    f"{tag}.n_event": np.int32(n_ev)})
+        return res
+    jloop.LoopCloser._correct_loop = correct_loop
+    try:
+        if kind == "main":
+            res, sys_, _ = run_loop(cfg, scene, poses, objects=False,
+                                    blob=False, tag="alias corridor")
+        else:
+            k = int(kind[len("pin"):])
+            main = np.load(study_part_path("alias:main"))
+            upto = alias_depth(main)
+            res, sys_, _ = run_loop(
+                cfg, scene, poses[:upto], objects=False, blob=False,
+                noise_seed=k,
+                pin=(main["insert_frames"], main["sim3_sets"]),
+                tag=f"alias corridor pinned ulp noise {k}")
+    finally:
+        jloop.LoopCloser._correct_loop = orig
+    # the script's own summary (run_alias): centre errors of the tracked
+    # records after the flush
+    errs = []
+    for rec, T in zip(sys_.trajectory, poses):
+        if rec.tracked:
+            C = -np.asarray(rec.Tcw)[:3, :3].T @ np.asarray(rec.Tcw)[:3, 3]
+            errs.append(np.linalg.norm(C - np.linalg.inv(T)[:3, 3]))
+    res["ate_rmse_mm"] = np.float64(
+        np.sqrt(np.mean(np.square(errs))) * 1e3 if errs else -1.0)
+    res["keyframes"] = np.int32(sys_.n_keyframes)
+    res.update(out_extra)
+    np.savez_compressed(study_part_path(part), **res)
+    print(f"{part}: events {str(res['events'])}", flush=True)
+
+
+def alias_depth(main):
+    """The corridor's frames chip_smoke.py replays: through two frames
+    after the frame whose keyframe made the first rejection by the
+    pre-gate, or by the post-gates where one comes later (the JAX run at
+    VGA makes none)."""
+    ev = json.loads(str(main["events"]))
+    frames = alias_event_frames(main)
+    kinds = [bool(e.get("pre_gated")) for e in ev]
+    if True not in kinds or any(e["accepted"] for e in ev):
+        raise SystemExit(f"alias corridor: events {ev}; a pre-gated "
+                         f"rejection and no accepted closure are needed")
+    last = frames[kinds.index(True)]
+    post = [f for f, e in zip(frames, ev) if not e.get("pre_gated")]
+    if post:
+        last = max(last, post[0])
+    return min(last + 3, len(main["tracked"]))
+
+
+def record_study_alias_postgate():
+    """The post-gates on the corridor's first pre-gated candidate: the JAX
+    closer's _correct_loop on alias:main's recorded input (map rows, q, l,
+    T12, s12) with the pre-gate's absolute limits lifted, so the full
+    speculative correction runs (the candidate's relative pre-gate tests
+    do not fire; checked) and the bend-budget and quality gates decide,
+    as in results/loop_alias_r5_postgates.json. Writes the event."""
+    from object_slam_tpu.slam.map_state import init_map
+    cfg, _, _ = alias_setup()
+    main = np.load(study_part_path("alias:main"))
+    ev_pre = json.loads(str(main["pre.event"]))
+    if (ev_pre["pred_bend_deg"] > 4.0 * ev_pre["budget_deg"]
+            or ev_pre["pred_bend_frac"] > 4.0 * ev_pre["budget_frac"]):
+        raise SystemExit(f"alias postgate: a relative pre-gate test fires "
+                         f"on {ev_pre}")
+    sys_ = SlamSystem(cfg, enable_objects=False, enable_loop=True)
+    lc = sys_.loop_closer
+    lc.cfg = cfg.replace(loop=dataclasses.replace(
+        cfg.loop, pregate_bend_deg_abs=float("inf"),
+        pregate_bend_frac_abs=float("inf")))
+    base = {f: np.asarray(getattr(init_map(
+        cfg.caps, cfg.objects.history_capacity,
+        n_bow_words=lc.vocab.n_words), f)) for f in MapState._fields}
+    rows = {k[len("pre.m."):]: main[k] for k in main.files
+            if k.startswith("pre.m.")}
+    full = {}
+    for f, b in base.items():
+        v = rows[f]
+        if v.ndim == 0 or v.shape[0] == b.shape[0]:
+            full[f] = v
+        else:
+            full[f] = b.copy()
+            full[f][:v.shape[0]] = v
+    m = MapState(**{f: jnp.asarray(v) for f, v in full.items()})
+    _, accepted = lc._correct_loop(m, int(main["pre.q"]),
+                                   int(main["pre.l"]),
+                                   jnp.asarray(main["pre.T12"]),
+                                   float(main["pre.s12"]))
+    ev = lc.events[-1]
+    print(f"alias postgate: {json.dumps(ev)}", flush=True)
+    if accepted or ev.get("pre_gated"):
+        raise SystemExit("alias postgate: the post-gates must reject")
+    np.savez_compressed(study_part_path("alias:postgate"),
+                        event=np.asarray(json.dumps(ev)))
+
+
+def alias_event_frames(main):
+    """The frame of each closure event of a run_loop record: the first
+    on_keyframe call (frame, kf, closed) on the event's query keyframe
+    after the previous event's frame."""
+    okf = main["on_keyframe"]
+    frames, at = [], -1
+    for e in json.loads(str(main["events"])):
+        rows = okf[(okf[:, 1] == e["q"]) & (okf[:, 0] > at)]
+        at = int(rows[0, 0])
+        frames.append(at)
+    return frames
+
+
+def probe_kf_errors(m, kf_frame, poses):
+    """diag_loop.py's kf_pose_errors: each valid keyframe's centre error
+    against its frame's ground truth, mm."""
+    errs = {}
+    kv = np.asarray(m.kf_valid)
+    kp = np.asarray(m.kf_pose)
+    for k, fi in kf_frame.items():
+        if k < len(kv) and kv[k]:
+            errs[k] = float(np.linalg.norm(
+                np.linalg.inv(kp[k])[:3, 3]
+                - np.linalg.inv(poses[fi])[:3, 3]) * 1e3)
+    return errs
+
+
+def record_study_loop_probe():
+    """diag_loop.py's closure probe (its _correct_loop instrumentation and
+    keyframe-to-frame map, verbatim) on loop_small.npz's circuit (the
+    script's scene at --scale 2, strict readback): every closure's event
+    with the probe's fields, the per-keyframe errors before and after, and
+    the keyframe-to-frame map as it stood after frame loop_small "start",
+    where the port's replay begins. Refuses to write unless the run's
+    closer events and keyframe frames are loop_small.npz's."""
+    tap_sampler()
+    del _SETS[:]
+    fx = np.load(OUT_LOOP_SMALL)
+    start = int(fx["start"])
+    cfg = loop_small_cfg()
+    scene = loop_scene(cfg)
+    poses = loop_poses(LOOP_SMALL_FRAMES)
+    sys_ = SlamSystem(cfg, enable_objects=False, enable_loop=True)
+    lc = sys_.loop_closer
+    orig_correct = lc._correct_loop
+    events, errs_log, kf_frame, current_frame = [], [], {}, [0]
+
+    def instrumented(m, q, l, T12, s12):
+        q_fi = kf_frame.get(int(q), current_frame[0])
+        kf_frame[int(q)] = q_fi
+        Tq = np.asarray(m.kf_pose[q])
+        Tl = np.asarray(m.kf_pose[l])
+        gt_q, gt_l = poses[q_fi], poses[kf_frame[int(l)]]
+        ev = {"q": int(q), "l": int(l), "s12": float(s12)}
+        T12_gt = gt_q @ np.linalg.inv(gt_l)
+        dT = np.asarray(T12) @ np.linalg.inv(T12_gt)
+        ev["sim3_trans_err_mm"] = float(np.linalg.norm(dT[:3, 3]) * 1e3)
+        ev["sim3_rot_err_deg"] = float(np.degrees(np.arccos(
+            np.clip((np.trace(dT[:3, :3]) - 1) / 2, -1, 1))))
+        T12_est = Tq @ np.linalg.inv(Tl)
+        dD = T12_est @ np.linalg.inv(T12_gt)
+        ev["drift_trans_mm"] = float(np.linalg.norm(dD[:3, 3]) * 1e3)
+        ev["drift_rot_deg"] = float(np.degrees(np.arccos(
+            np.clip((np.trace(dD[:3, :3]) - 1) / 2, -1, 1))))
+        events.append(ev)
+        before = probe_kf_errors(m, kf_frame, poses)
+        m2, accepted = orig_correct(m, q, l, T12, s12)
+        ev["accepted"] = bool(accepted)
+        errs_log.append((before, probe_kf_errors(m2, kf_frame, poses)))
+        return m2, accepted
+    lc._correct_loop = instrumented
+    held = {}
+    for i, T in enumerate(poses):
+        current_frame[0] = i
+        gray, depth, rgb, _ = scene.render_rgbd(T)
+        sys_.track_rgbd(jnp.asarray(np.asarray(gray, np.float32)),
+                        jnp.asarray(np.asarray(depth, np.float32)),
+                        jnp.asarray(np.asarray(rgb, np.float32)), None,
+                        timestamp=i / 30.0)
+        if sys_.last_kf_id >= 0 and sys_.last_kf_id not in kf_frame:
+            kf_frame[sys_.last_kf_id] = i
+        if i == start:
+            held["kf_frame"] = np.asarray(sorted(kf_frame.items()),
+                                          np.int32).reshape(-1, 2)
+    jax.effects_barrier()
+    want = [(e["q"], e["l"], e["accepted"])
+            for e in json.loads(str(fx["events"]))]
+    got = [(e["q"], e["l"], e["accepted"]) for e in events]
+    sets = [s for k, s in _SETS if k == 3]
+    same_sets = (len(sets) == len(fx["sim3_sets"]) and all(
+        np.array_equal(a, b) for a, b in zip(sets, fx["sim3_sets"])))
+    if got != want or not same_sets:
+        raise SystemExit(f"loop probe: closures {got} against loop_small's "
+                         f"{want}, Sim3 draws equal: {same_sets}")
+    print(f"loop probe: {json.dumps(events)}", flush=True)
+    out = {"events": np.asarray(json.dumps(events)),
+           "kf_errors": np.asarray(json.dumps(
+               [[{str(k): v for k, v in d.items()} for d in pair]
+                for pair in errs_log])),
+           "kf_frame": held["kf_frame"]}
+    np.savez_compressed(study_part_path("loop_probe"), **out)
+
+
+class StudyMeta:
+    """A TUM frame's timestamp, as the semantic probes read it."""
+
+    def __init__(self, timestamp):
+        self.timestamp = timestamp
+
+
+def sem_small_inputs():
+    """The semantic probes' CPU input: the object-stability scene
+    (objects_cfg) rendered into the probes' frame layout (u8 rgb, metric
+    float32 depth, the detections with bit-packed masks), the timestamps
+    and the ground-truth centres by timestamp."""
+    from object_slam_tpu.semantic.object2d import pack_mask_bits
+    cfg = objects_cfg()
+    scene, _ = object_scene(cfg)
+    poses = orbit_poses(SEM_SMALL_FRAMES, step=0.008)
+    frames, metas, gt = [], [], {}
+    for i, T in enumerate(poses):
+        _, depth, rgb, sem = scene.render_rgbd(T)
+        sa = scene.sem_arrays(sem, cfg.semantic.max_instances)
+        frames.append((np.clip(rgb, 0, 255).astype(np.uint8),
+                       np.asarray(depth, np.float32),
+                       (np.asarray(pack_mask_bits(jnp.asarray(sa[0]))),)
+                       + tuple(np.asarray(a) for a in sa[1:])))
+        metas.append(StudyMeta(i / 30.0))
+        gt[round(i / 30.0, 4)] = np.linalg.inv(T)[:3, 3]
+    return cfg, frames, metas, gt
+
+
+def sem_vga_inputs():
+    """The first SEM_VGA_FRAMES frames of scripts/make_synth_tum.py's
+    40-frame directory (written under build/studies/tum) through
+    run_experiments.load_tum_frames, at SlamConfig.tum_rgbd()."""
+    from object_slam_tpu.datasets import tum
+    import subprocess
+    seq = os.path.join(STUDIES_DIR, "tum")
+    if not os.path.isfile(os.path.join(seq, "groundtruth.txt")):
+        subprocess.run([sys.executable, os.path.join(
+            HERE, "..", "..", "scripts", "make_synth_tum.py"), "--out", seq,
+            "--frames", str(EXP_TUM_FRAMES)], check=True)
+    ex = load_script("run_experiments")
+    cfg = SlamConfig.tum_rgbd()
+    metas, frames = ex.load_tum_frames(seq, cfg, SEM_VGA_FRAMES)
+    ts_gt, pos_gt, _ = tum.load_groundtruth(seq)
+    gt = {round(t, 4): p for t, p in zip(ts_gt, pos_gt)}
+    return cfg, frames, metas, gt, seq
+
+
+def run_semopt_probe(cfg, frames, metas, gt):
+    """diag_semopt.py's loop: the staged path (fused=False, strict
+    readback), objects on, sync; each frame's pose before the semantic
+    refinement (SlamSystem._last_presem_Tcw) and after it, and the
+    script's summary."""
+    cfg = cfg.replace(tracking=dataclasses.replace(
+        cfg.tracking, fused=False, pipelined_readback=False))
+    sys_ = SlamSystem(cfg, enable_objects=True, async_mapping=False)
+    rows, pre_tcw, post_tcw, deltas = [], [], [], []
+    for i, (rgb8, d16, sem) in enumerate(frames):
+        f = sys_.track_rgbd(None, d16, rgb8, sem,
+                            timestamp=metas[i].timestamp)
+        gt_p = gt.get(round(metas[i].timestamp, 4))
+        pre = getattr(sys_, "_last_presem_Tcw", None)
+        if gt_p is None or pre is None:
+            continue
+        c_pre = np.linalg.inv(np.asarray(pre))[:3, 3]
+        c_post = np.linalg.inv(np.asarray(f.Tcw))[:3, 3]
+        deltas.append((i, float(np.linalg.norm(c_pre - gt_p)),
+                       float(np.linalg.norm(c_post - gt_p))))
+        pre_tcw.append(np.asarray(pre, np.float32))
+        post_tcw.append(np.asarray(f.Tcw, np.float32))
+    d = np.asarray([(a, b) for _, a, b in deltas])
+    if len(d) == 0:
+        summary = {"n_semopt_frames": 0}
+    else:
+        diff_mm = (d[:, 1] - d[:, 0]) * 1000
+        summary = {
+            "n_semopt_frames": len(d),
+            "mean_pre_mm": float(d[:, 0].mean() * 1000),
+            "mean_post_mm": float(d[:, 1].mean() * 1000),
+            "median_shift_mm": float(np.median(diff_mm)),
+            "mean_shift_mm": float(diff_mm.mean()),
+            "p90_shift_mm": float(np.percentile(diff_mm, 90)),
+            "frames_worse": int((diff_mm > 0.1).sum()),
+            "frames_better": int((diff_mm < -0.1).sum()),
+            "worst_shift_mm": float(diff_mm.max()),
+        }
+    m = sys_.map
+    labels = np.asarray(m.obj_label)[np.asarray(m.obj_valid)]
+    lab, cnt = np.unique(labels, return_counts=True)
+    out = {"summary": np.asarray(json.dumps(summary)),
+           "frames": np.asarray([i for i, _, _ in deltas], np.int32),
+           "pre_tcw": (np.stack(pre_tcw) if pre_tcw
+                       else np.zeros((0, 4, 4), np.float32)),
+           "post_tcw": (np.stack(post_tcw) if post_tcw
+                        else np.zeros((0, 4, 4), np.float32)),
+           "tracked": np.asarray([r.tracked for r in sys_.trajectory]),
+           "rec_tcw": np.stack([r.Tcw for r in sys_.trajectory]).astype(
+               np.float32),
+           "census_labels": lab.astype(np.int32),
+           "census_counts": cnt.astype(np.int32),
+           "semantic_constraints": np.int64(
+               sys_.objects.semantic_constraints)}
+    print(f"semopt probe: {json.dumps(summary)} over frames "
+          f"{out['frames'].tolist()}", flush=True)
+    return out
+
+
+def degrade_ragged(cfg, frames, seed=RAGGED_SEED, shift=RAGGED_SHIFT,
+                   holes=0.0):
+    """diag_semopt_ragged.py's mask degradation, verbatim."""
+    from object_slam_tpu.datasets.synthetic import degrade_masks
+    from object_slam_tpu.semantic.object2d import (pack_mask_bits,
+                                                   unpack_mask_bits)
+    rng = np.random.RandomState(seed)
+    ragged = []
+    for rgb8, d16, sem in frames:
+        if sem is None:
+            ragged.append((rgb8, d16, None))
+            continue
+        packed, labels, probs, bboxes, valid = sem
+        M = np.asarray(unpack_mask_bits(packed, cfg.camera.width))
+        Mn, Bn = degrade_masks(M, np.asarray(valid), rng, shift=shift,
+                               hole_frac=holes)
+        ragged.append((rgb8, d16, (np.asarray(pack_mask_bits(Mn)), labels,
+                                   probs, np.asarray(Bn, np.float32),
+                                   valid)))
+    return ragged
+
+
+def run_ragged_arms(cfg, frames, metas, seq):
+    """diag_semopt_ragged.py's two arms (semopt_enabled on / off, objects
+    on, sync) on the degraded frames through
+    run_experiments.run_tum_variant, the SlamSystem class wrapped (its
+    12-frame prewarm systems are thrown away and left out): each arm's
+    result without its timings, records, keyframe frames and census; and
+    the degraded masks."""
+    import object_slam_tpu.slam.system as jsys
+    ex = load_script("run_experiments")
+    ragged = degrade_ragged(cfg, frames)
+    cfg_semoff = cfg.replace(objects=dataclasses.replace(
+        cfg.objects, semopt_enabled=False))
+    out = {"ragged_masks": np.concatenate(
+        [r[2][0].reshape(-1) for r in ragged if r[2] is not None])}
+    for name, vcfg in (("ragged_semopt_on", cfg),
+                       ("ragged_semopt_off", cfg_semoff)):
+        Recorded, made = recording_systems()
+        orig, jsys.SlamSystem = jsys.SlamSystem, Recorded
+        try:
+            res = ex.run_tum_variant(seq, vcfg, ragged, metas,
+                                     enable_objects=True, async_mapping=False)
+        finally:
+            jsys.SlamSystem = orig
+        sys_ = made[-1]
+        for k in ("fps", "median_track_ms"):
+            res.pop(k, None)
+        m = sys_.map
+        labels = np.asarray(m.obj_label)[np.asarray(m.obj_valid)]
+        lab, cnt = np.unique(labels, return_counts=True)
+        out.update({
+            f"{name}.result": np.asarray(json.dumps(res)),
+            f"{name}.tracked": np.asarray([r.tracked
+                                           for r in sys_.trajectory]),
+            f"{name}.rec_tcw": np.stack(
+                [r.Tcw for r in sys_.trajectory]).astype(np.float32),
+            f"{name}.insert_frames": np.asarray(sys_.rec_inserts, np.int32),
+            f"{name}.census_labels": lab.astype(np.int32),
+            f"{name}.census_counts": cnt.astype(np.int32)})
+        print(f"{name}: {json.dumps(res)}", flush=True)
+    return out
+
+
+def record_study_semantic(part):
+    """part "sem_small" / "sem_vga": the semantic refinement probe
+    (run_semopt_probe) and the ragged-mask A/B (run_ragged_arms) on
+    sem_small_inputs / sem_vga_inputs."""
+    if part == "sem_small":
+        cfg, frames, metas, gt = sem_small_inputs()
+        seq = os.path.join(STUDIES_DIR, "no_sequence")
+    else:
+        cfg, frames, metas, gt, seq = sem_vga_inputs()
+    out = {f"semopt.{k}": v
+           for k, v in run_semopt_probe(cfg, frames, metas, gt).items()}
+    out.update({f"ragged.{k}": v for k, v in run_ragged_arms(
+        cfg, frames, metas, seq).items()})
+    np.savez_compressed(study_part_path(part), **out)
+
+
+def merge_studies():
+    """The parts under build/studies/ -> studies.npz (the CPU tests: the
+    scale-4 variants, the corridor's recorded candidate inputs, the
+    closure probe, the semantic probes on the object-stability scene) and
+    studies_vga.npz (chip_smoke.py: the VGA variants, the corridor's run
+    and its pinned noise runs, the semantic probes at tum_rgbd)."""
+    small, vga = {}, {}
+    for name in STUDY_VARIANTS:
+        for kind, out in (("var_small", small), ("var_vga", vga)):
+            d = np.load(study_part_path(f"{kind}:{name}"))
+            out.update({f"var.{name}.{k}": d[k] for k in d.files})
+    for name in STUDY_VARIANTS:
+        n = 0
+        for k in range(VAR_NOISE_RUNS):
+            p = study_part_path(f"var_vga_noise:{name}:{k}")
+            if not os.path.exists(p):
+                continue
+            d = np.load(p)
+            for f in ("result", "tracked", "rec_tcw", "insert_frames"):
+                vga[f"var.{name}.noise.{n}.{f}"] = d[f]
+            n += 1
+        vga[f"var.{name}.n_noise"] = np.int32(n)
+    main = np.load(study_part_path("alias:main"))
+    depth = alias_depth(main)
+    small.update({f"alias.{k}": main[k] for k in main.files
+                  if k.startswith(("pre.", "post."))})
+    small["alias.events"] = main["events"]
+    small["alias.postgate.event"] = np.load(
+        study_part_path("alias:postgate"))["event"]
+    keep = ("tracked", "rec_tcw", "insert_frames", "gray_sum", "events",
+            "on_keyframe", "loops_closed", "loops_rejected", "sim3_sets",
+            "pnp_sets", "staged_frames", "reloc_frames", "reloc_ok",
+            "ate_rmse_mm", "keyframes", "seconds")
+    vga.update({f"alias.{k}": main[k] for k in keep})
+    vga["alias.event_frames"] = np.asarray(alias_event_frames(main),
+                                           np.int32)
+    vga["alias.depth"] = np.int32(depth)
+    n = 0
+    for k in range(ALIAS_NOISE_RUNS):
+        p = study_part_path(f"alias:pin{k}")
+        if not os.path.exists(p):
+            continue
+        d = np.load(p)
+        ev = [e for e in json.loads(str(d["events"]))]
+        vga[f"alias.noise.{n}.events"] = d["events"]
+        vga[f"alias.noise.{n}.tracked"] = d["tracked"]
+        vga[f"alias.noise.{n}.rec_tcw"] = d["rec_tcw"]
+        print(f"alias pinned noise {k}: {len(ev)} events", flush=True)
+        n += 1
+    vga["alias.n_noise"] = np.int32(n)
+    d = np.load(study_part_path("loop_probe"))
+    small.update({f"probe.{k}": d[k] for k in d.files})
+    for part, out in (("sem_small", small), ("sem_vga", vga)):
+        d = np.load(study_part_path(part))
+        out.update({k: d[k] for k in d.files})
+    vga["sem.frames"] = np.int32(SEM_VGA_FRAMES)
+    for path, out in ((OUT_STUDIES, small), (OUT_STUDIES_VGA, vga)):
+        np.savez_compressed(path, **out)
+        print(f"wrote {path}: {os.path.getsize(path) / 1e3:.1f} kB",
+              flush=True)
+
+
+def record_studies(part):
+    """make_reference.py studies:<part> (one part, for parallel runs) or
+    studies (every part in turn, then merge)."""
+    if part.startswith(("var_small:", "var_vga:", "var_vga_noise:")):
+        record_study_variant(part)
+    elif part == "alias:postgate":
+        record_study_alias_postgate()
+    elif part.startswith("alias:"):
+        record_study_alias(part)
+    elif part == "loop_probe":
+        record_study_loop_probe()
+    elif part in ("sem_small", "sem_vga"):
+        record_study_semantic(part)
+    elif part == "merge":
+        merge_studies()
+    else:
+        raise SystemExit(f"studies: unknown part {part}")
+
+
+STUDY_PARTS = ([f"{k}:{n}" for k in ("var_small", "var_vga")
+                for n in STUDY_VARIANTS]
+               + [f"var_vga_noise:{n}:{k}" for n in STUDY_VARIANTS
+                  for k in range(VAR_NOISE_RUNS)]
+               + ["alias:main", "alias:postgate"]
+               + [f"alias:pin{k}" for k in range(ALIAS_NOISE_RUNS)]
+               + ["loop_probe", "sem_small", "sem_vga", "merge"])
+
+
 def main():
     parts = sys.argv[1:] or ["slice1", "objects", "tum_vga", "pipelined",
                              "kidnap", "pipelined_tum_vga", "kidnap_tum_vga",
@@ -3021,6 +3810,8 @@ def main():
         record_batched()
     if "pnp_cases" in parts:
         record_pnp_cases()
+    if "pnp_cases_noise" in parts:
+        record_pnp_cases_noise()
     if "experiments" in parts:
         record_experiments()
     if "experiments_tiny" in parts:
@@ -3035,6 +3826,13 @@ def main():
         record_brief()
     if "kitti_pass_noise" in parts:
         record_kitti_pass_noise()
+    for p in parts:
+        # studies: every part in turn; studies:<part> one of them
+        if p == "studies":
+            for part in STUDY_PARTS:
+                record_studies(part)
+        elif p.startswith("studies:"):
+            record_studies(p.split(":", 1)[1])
     for p in parts:
         # loop_small_noise: every part in turn; loop_small_noise:<part>
         # one of them (noise<k>, merge), for parallel runs
