@@ -21,11 +21,11 @@ candidate costs < 10% of a full attempt).
 
 Also runs the POSITIVE 120-frame circuit (diag_loop_torch.py's scene),
 first and twice, so the record carries an accepted closure's warm wall
-cost for the ratios; --positive-frames 0 leaves it out. Output: one JSON
-(--out). Runs on the CUDA card unless given --device cpu.
+cost for the ratios. Output: one JSON (--out). Runs on the CUDA card
+unless given --device cpu.
 
 Usage: python scripts/diag_loop_alias_torch.py [--frames 240] [--out f.json]
-       [--scale 2] [--positive-frames 120] [--device cuda|cpu]
+       [--scale 2] [--device cuda|cpu]
 """
 
 import argparse
@@ -140,21 +140,31 @@ def alias_summary(sys_, poses_wc, frames):
         events=lc.events)
 
 
-def run_alias(args, device=None, systems=None):
+def render_frame(scene, cfg, Twc):
+    """The corridor's frame at a camera-to-world pose, as run_alias
+    tracks it: (gray, depth, rgb, sem_arrays)."""
+    gray, depth, rgb, sem = scene.render_rgbd(np.linalg.inv(Twc))
+    return gray, depth, rgb, scene.sem_arrays(sem,
+                                              cfg.semantic.max_instances)
+
+
+def run_alias(args, device=None, systems=None, frames=None):
+    """The corridor's run: run_alias's record (alias_summary). frames:
+    the frames render_frame gives at straight_path's poses, rendered
+    beforehand (rendered here otherwise). systems: a list the system is
+    appended to."""
     from object_slam_tpu_torch.slam.system import SlamSystem
 
     cfg = build_cfg(args.scale)
-    scene = build_alias_scene(cfg, period=args.period,
-                              n_periods=args.periods, seed=args.seed)
     poses = straight_path(args.frames, step=args.step)
+    if frames is None:
+        scene = build_alias_scene(cfg, period=args.period,
+                                  n_periods=args.periods, seed=args.seed)
+        frames = (render_frame(scene, cfg, Twc) for Twc in poses)
     sys_ = SlamSystem(cfg, enable_objects=False, enable_loop=True,
                       device=device)
-    for i, Twc in enumerate(poses):
-        Tcw = np.linalg.inv(Twc)
-        gray, depth, rgb, sem = scene.render_rgbd(Tcw)
-        sys_.track_rgbd(gray, depth, rgb,
-                        scene.sem_arrays(sem, cfg.semantic.max_instances),
-                        timestamp=i / 30.0)
+    for i, (gray, depth, rgb, sem) in enumerate(frames):
+        sys_.track_rgbd(gray, depth, rgb, sem, timestamp=i / 30.0)
     sys_.flush_mapping()
     if systems is not None:
         systems.append(sys_)
@@ -171,7 +181,7 @@ def run_positive(args, device=None):
     scene = SyntheticScene.make(cfg, seed=3, n_objects=3, plane_z=4.0)
     for b in scene.boxes:
         b["size"] = 0.9
-    poses = loop_trajectory(args.positive_frames, sweep=2 * np.pi * 1.15)
+    poses = loop_trajectory(120, sweep=2 * np.pi * 1.15)
     sys_ = SlamSystem(cfg, enable_objects=False, enable_loop=True,
                       device=device)
     lc = sys_.loop_closer
@@ -214,8 +224,6 @@ def main(argv=None):
     ap.add_argument("--step", type=float, default=0.2)
     ap.add_argument("--scale", type=int, default=2)
     ap.add_argument("--seed", type=int, default=7)
-    ap.add_argument("--positive-frames", type=int, default=120,
-                    help="frames of the positive circuit (0: leave it out)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--out", default=None)
@@ -224,10 +232,8 @@ def main(argv=None):
     # positive circuit FIRST and TWICE: the first pass warms the whole
     # correction path (propagate / fuse / pose graph / GBA / quality); the
     # second gives a warm accepted-closure wall cost for the ratio
-    pos = dict(loops_closed=0, loops_rejected=0, events=[])
-    if args.positive_frames:
-        run_positive(args, args.device)
-        pos = run_positive(args, args.device)
+    run_positive(args, args.device)
+    pos = run_positive(args, args.device)
     print("positive circuit (warm):", json.dumps(
         {k: v for k, v in pos.items() if k != "events"}), flush=True)
     for e in pos["events"]:

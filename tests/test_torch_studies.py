@@ -312,8 +312,11 @@ def test_study_mains_run_without_the_reference(tmp_path):
         online, final, _ = diag_loop_torch.main(
             ["--frames", "2", "--scale", "4"] + cpu)
         res["loop"] = dict(online, **final)
+        # the positive circuit is 2 x 120 frames: stubbed
+        diag_loop_alias_torch.run_positive = lambda args, device=None: dict(
+            loops_closed=0, loops_rejected=0, events=[])
         res["alias"] = diag_loop_alias_torch.main(
-            ["--frames", "2", "--scale", "4", "--positive-frames", "0",
+            ["--frames", "2", "--scale", "4",
              "--out", {str(tmp_path / "alias.json")!r}] + cpu)["alias"]
         res["semopt"] = diag_semopt_torch.main(
             ["--seq", {str(seq)!r}, "--frames", "2"] + cpu)

@@ -14,13 +14,19 @@ prewarm, whose systems are thrown away).
 
 Tolerances: the frames the probe reads, the summary's keys and its frame
 count exact; each frame's poses before and after within 2 mm / 0.1 deg;
-the summary's millimetre numbers within 2 mm (the pose band); the
-objects census exact. The ragged arms: the degraded masks bit-equal;
-tracked flags, keyframe frames, the result's keys, keyframe and object
-counts exact; records within 2 mm / 0.1 deg; map points and semantic
-constraints within 10% (tests/test_torch_experiments.py's band). The
-keyframe frames are the insertions (frame 0's initialization keyframe is
-not one)."""
+each frame's shift (its camera centre after the refinement less before
+it, 0.17-4.9 mm here) against the reference's: the median over the frames
+of |port - reference| / |reference| at most 0.1 (chip_smoke.py's
+STUDY_SHIFT_RTOL; a refinement that hands back its input reads 1, and
+faults.skip_semantic_refinement must fail it); the summary's millimetre
+numbers within 2 mm (the pose band); the objects census exact. The
+ragged arms: the degraded masks bit-equal; tracked flags, keyframe
+frames, the result's keys, keyframe and object counts exact; records within 2 mm / 0.1 deg; map points and semantic
+constraints within 10% (tests/test_torch_experiments.py's band); what
+the refinement moves, each frame's on-arm record centre less the off
+arm's, against the reference's by the same median rule as the shifts
+(the skipped refinement must fail it). The keyframe frames are the
+insertions (frame 0's initialization keyframe is not one)."""
 
 import json
 import os
@@ -30,6 +36,7 @@ import numpy as np
 import pytest
 
 from object_slam_tpu_torch.slam.system import SlamSystem
+from torch_fixtures import faults
 from torch_fixtures.threads import share_cores
 
 share_cores()
@@ -44,6 +51,7 @@ import diag_semopt_torch as semopt_mod  # noqa: E402
 SEM_FRAMES = 8                 # make_reference.py SEM_SMALL_FRAMES
 POSE_TOL_M = 2e-3
 POSE_TOL_DEG = 0.1
+SHIFT_RTOL = 0.1
 
 
 class Meta:
@@ -81,6 +89,51 @@ def _rot_deg(a, b):
     return float(np.degrees(np.arccos(np.clip((np.trace(R) - 1) / 2, -1, 1))))
 
 
+def _centre(T):
+    return np.linalg.inv(np.asarray(T, np.float64))[:3, 3]
+
+
+def _misfit(got, want):
+    """Per row of two [n, 3] arrays of camera-centre differences,
+    |got - want| / |want|, over the rows where want is not 0
+    (chip_smoke.py's misfit)."""
+    got = np.asarray(got, np.float64).reshape(-1, 3)
+    want = np.asarray(want, np.float64).reshape(-1, 3)
+    norm = np.linalg.norm(want, axis=1)
+    keep = norm > 0
+    return np.linalg.norm(got - want, axis=1)[keep] / norm[keep]
+
+
+def _shift_misfit(poses, pre_ref, post_ref):
+    """Each refined frame's shift (the camera centre after the refinement
+    less the one before it) against the reference's."""
+    return _misfit([_centre(post) - _centre(pre) for _, pre, post in poses],
+                   [_centre(b) - _centre(a)
+                    for a, b in zip(pre_ref, post_ref)][:len(poses)])
+
+
+def _run_arms(inputs, n):
+    """Both ragged arms on the first n frames (no prewarm): (results,
+    systems)."""
+    cfg, frames, metas, _ = inputs
+    ragged, _ = ragged_mod.degrade(cfg, frames)
+    systems = []
+    out = ragged_mod.run_arms(os.path.join(ROOT, "build", "no_sequence"),
+                              cfg, ragged[:n], metas[:n], device="cpu",
+                              prewarm=0, systems=systems)
+    return out, systems
+
+
+def _arm_gap_misfit(fx, systems):
+    """What the refinement moves: the on arm's record centres less the off
+    arm's, against the reference's."""
+    on, off = ([_centre(r.Tcw) for r in s.trajectory] for s in systems)
+    n = len(on)
+    jon, joff = ([_centre(T) for T in fx[f"ragged.{a}.rec_tcw"][:n]]
+                 for a in ("ragged_semopt_on", "ragged_semopt_off"))
+    return _misfit(np.subtract(on, off), np.subtract(jon, joff))
+
+
 def _census(sys_):
     m = sys_.map
     labels = m.obj_label[m.obj_valid].numpy()
@@ -105,6 +158,8 @@ def test_semopt_probe_matches_reference(fx, inputs):
         for a, b in ((pre, wpre), (post, wpost)):
             assert np.abs(a[:3, 3] - b[:3, 3]).max() <= POSE_TOL_M, i
             assert _rot_deg(a, b) <= POSE_TOL_DEG, i
+    misfit = _shift_misfit(poses, fx["semopt.pre_tcw"], fx["semopt.post_tcw"])
+    assert np.median(misfit) <= SHIFT_RTOL, misfit
     assert set(out) == set(want)
     assert out["n_semopt_frames"] == want["n_semopt_frames"]
     for k, v in want.items():
@@ -116,6 +171,25 @@ def test_semopt_probe_matches_reference(fx, inputs):
     assert [r.tracked for r in sys_.trajectory] == \
         fx["semopt.tracked"].tolist()
     assert sys_._last_presem_Tcw is not None
+
+
+def test_semopt_probe_with_the_refinement_skipped_fails(fx, inputs):
+    """A planted fault: the refinement hands back the pose it was given.
+    The shift check must fail it (at VGA, where the refinement moves a
+    frame by 0.05-0.5 mm, the 2 mm pose band cannot)."""
+    cfg, frames, metas, gt = inputs
+    n = 4
+    undo = faults.skip_semantic_refinement()
+    try:
+        _, poses, _ = semopt_mod.run_probe(cfg, metas[:n], frames[:n], gt,
+                                           device="cpu", log_every=0)
+    finally:
+        undo()
+    assert len(poses) == n - 1
+    for _, pre, post in poses:
+        assert np.array_equal(pre, post)
+    misfit = _shift_misfit(poses, fx["semopt.pre_tcw"], fx["semopt.post_tcw"])
+    assert np.median(misfit) > SHIFT_RTOL, misfit
 
 
 def test_ragged_arms_match_reference(fx, inputs):
@@ -161,3 +235,19 @@ def test_ragged_arms_match_reference(fx, inputs):
                                  fx[p + "census_counts"].tolist())
     on, off = out["ragged_semopt_on"], out["ragged_semopt_off"]
     assert off["semantic_constraints"] == 0 < on["semantic_constraints"]
+    gap = _arm_gap_misfit(fx, systems)
+    assert np.median(gap) <= SHIFT_RTOL, gap
+
+
+def test_ragged_arms_with_the_refinement_skipped_fail(fx, inputs):
+    """A planted fault: the on arm's refinement hands back the pose it was
+    given, its constraints counted as before. What the refinement moves
+    (the on arm less the off arm) must then miss the reference's."""
+    undo = faults.skip_semantic_refinement()
+    try:
+        out, systems = _run_arms(inputs, 4)
+    finally:
+        undo()
+    assert out["ragged_semopt_on"]["semantic_constraints"] > 0
+    gap = _arm_gap_misfit(fx, systems)
+    assert np.median(gap) > SHIFT_RTOL, gap

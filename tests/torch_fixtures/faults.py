@@ -38,3 +38,18 @@ def disable_pre_gate(lc):
         return dict(pre_gate(m, q, l, T12), pre_gated=False)
     lc.pre_gate = never
     return lc
+
+
+def skip_semantic_refinement():
+    """The semantic refinement hands back the pose it was given, with its
+    edges, inliers and constraint count as before (ObjectEngine.semopt_impl
+    patched on the class, for the systems made after the call). Returns
+    the function that undoes the patch."""
+    from object_slam_tpu_torch.slam.objects import ObjectEngine
+    semopt_impl = ObjectEngine.semopt_impl
+
+    def unchanged(self, m, frame, res):
+        _, kp_pt, inlier, n_sem = semopt_impl(self, m, frame, res)
+        return res.Tcw, kp_pt, inlier, n_sem
+    ObjectEngine.semopt_impl = unchanged
+    return lambda: setattr(ObjectEngine, "semopt_impl", semopt_impl)

@@ -3031,7 +3031,7 @@ VAR_VGA_FRAMES = 40
 # the VGA variants' pinned one-ulp noise runs (the circuit is chaotic:
 # the card's base run parts from the JAX CPU run by 33 mm / 0.84 deg on
 # the same keyframes)
-VAR_NOISE_RUNS = 2
+VAR_NOISE_RUNS = 8
 # the corridor at VGA (diag_loop_alias.py's defaults at --scale 1) and the
 # pinned one-ulp noise runs over the frames chip_smoke.py replays
 ALIAS_FRAMES = 320
@@ -3166,9 +3166,12 @@ def record_study_variant(part):
     noise = None
     if kind == "var_vga_noise":
         # part "var_vga_noise:<name>:<k>": the VGA run under one-ulp noise
-        # (seed k) with var_vga:<name>'s keyframe decisions pinned
-        main = np.load(study_part_path(f"var_vga:{name}"))
-        noise = (int(part.split(":")[2]), main["insert_frames"])
+        # (seed k) with var_vga:<name>'s keyframe decisions pinned (from
+        # studies_vga.npz where that part is not under build/studies/)
+        main = study_part_path(f"var_vga:{name}")
+        pinned = (np.load(main)["insert_frames"] if os.path.exists(main)
+                  else np.load(OUT_STUDIES_VGA)[f"var.{name}.insert_frames"])
+        noise = (int(part.split(":")[2]), pinned)
     cfg = ab.build_cfg(4 if small else 1)
     if small:
         cfg = cfg.replace(tracking=dataclasses.replace(
@@ -3697,10 +3700,35 @@ def merge_studies():
               flush=True)
 
 
+def merge_var_noise():
+    """studies_vga.npz's variants gain the var_vga_noise parts under
+    build/studies/ for the seeds past the runs they hold (seed k is noise
+    run k); the rest of the file stays as it is."""
+    vga = dict(np.load(OUT_STUDIES_VGA))
+    for name in STUDY_VARIANTS:
+        n = int(vga[f"var.{name}.n_noise"])
+        for k in range(n, VAR_NOISE_RUNS):
+            p = study_part_path(f"var_vga_noise:{name}:{k}")
+            if not os.path.exists(p):
+                break
+            d = np.load(p)
+            for f in ("result", "tracked", "rec_tcw", "insert_frames"):
+                vga[f"var.{name}.noise.{n}.{f}"] = d[f]
+            n += 1
+        vga[f"var.{name}.n_noise"] = np.int32(n)
+        print(f"{name}: {n} pinned noise runs", flush=True)
+    np.savez_compressed(OUT_STUDIES_VGA, **vga)
+    print(f"wrote {OUT_STUDIES_VGA}: "
+          f"{os.path.getsize(OUT_STUDIES_VGA) / 1e3:.1f} kB", flush=True)
+
+
 def record_studies(part):
     """make_reference.py studies:<part> (one part, for parallel runs) or
-    studies (every part in turn, then merge)."""
-    if part.startswith(("var_small:", "var_vga:", "var_vga_noise:")):
+    studies (every part in turn, then merge); studies:var_noise_merge
+    adds the variants' noise parts to an existing studies_vga.npz."""
+    if part == "var_noise_merge":
+        merge_var_noise()
+    elif part.startswith(("var_small:", "var_vga:", "var_vga_noise:")):
         record_study_variant(part)
     elif part == "alias:postgate":
         record_study_alias_postgate()
