@@ -139,16 +139,28 @@ Phases, each fatal on failure:
      the JAX run of the same decoded frames, euroc_driver.npz) and --mono
      on a 10-frame mav0 directory written under build/, each through the
      prefetcher, and that directory's arrays held to the PNG reader's;
-     the sharded GBA (phase_sharded_ba) on the loop pass's GBA input at
-     full caps: one process, run_sharded_global_ba over NCCL at the card
-     count (one card: bit-identical), over 2 gloo ranks spawned on one
-     card (held to the loop pass's GBA band and to the one-process result
-     within tests/test_torch_parallel.py's tolerance), and with a rank
-     that keeps its own per-point sums (must fail); batched tracking
-     (phase_batched) of 4 sequences at TUM-VGA width, each element held to
+     then 8 and 9 (the KITTI directory's arrays held to the PNG reader's
+     too); then the four KITTI retention probes of slice 12
+     (phase_probe_kitti) on a KITTI directory of the 24 street pairs of 8:
+     scripts/diag_kitti_retention_torch.py over 12 frames,
+     diag_kitti_torch.py, diag_local_recovery_torch.py and
+     diag_motion_chain_torch.py over 8, the drives with the reference
+     run's keyframe decisions replayed, each held to the JAX CPU run
+     (probes_vga.npz) beside its pinned one-ulp noise runs, one
+     orb_describe per pair asserted, one launch at a probe frame's shapes
+     held to its plain version, and the motion search's level window made
+     symmetric (must fail);
+ 10b. batched tracking (phase_batched) of 4 sequences at TUM-VGA width
+     in the second process after the mono phases, each element held to
      the single-sequence calls, two maps swapped (must fail), 4
-     orb_describe per step; then 8 and 9 (the KITTI directory's arrays
-     held to the PNG reader's too);
+     orb_describe per step; and in the fourth process after its probes
+     (moved from the second, for the time limit), the sharded
+     GBA (phase_sharded_ba) on the loop pass's GBA input at full caps:
+     one process, run_sharded_global_ba over NCCL at the card count (one
+     card: bit-identical), over 2 gloo ranks spawned on one card (held to
+     the loop pass's GBA band and to the one-process result within
+     tests/test_torch_parallel.py's tolerance), and with a rank that
+     keeps its own per-point sums (must fail);
  11. in a third process on the same card, started beside the second,
      the offline tools (tools_child_main): scripts/make_synth_tum_torch.py
      (40 frames) and make_synth_kitti_torch.py (24) under build/, every
@@ -160,7 +172,10 @@ Phases, each fatal on failure:
      to the reference's functions on the same directories (phase
      docstring), one orb_describe per TUM frame and per KITTI pair;
      scripts/train_vocab_torch.py at full size (80 renders, 80
-     orb_describe), the file byte for byte the reference's CPU run's;
+     orb_describe; the harvest's pyramid in the reference's order, one
+     render's levels bit-equal to the CPU port's, the rows parting from
+     the reference's only the CPU port's), the file byte for byte the
+     reference's CPU run's;
      scripts/train_brief_pattern_torch.py at full size: the harvest (one
      orb_describe and one extract_patches_levels per render, each launch
      bit-exact to its plain version, 48 of each asserted), the selection
@@ -187,10 +202,19 @@ Phases, each fatal on failure:
      under build/ (poses before and after the refinement, summary,
      census; the pose before the refinement thrown away, and masks from
      another seed, must fail); one orb_describe per frame asserted in
-     every run;
+     every run; then the retention and pose-solver probes of slice 12
+     (phase_probe_retention, phase_probe_pose):
+     scripts/diag_retention_torch.py at TUM VGA on its 30-frame orbit
+     (OSLAM_DUMP's writer on) and --loc-only on 12 frames, held to
+     probes_vga.npz beside the pinned noise runs, the loc-only run again
+     with debug_last's motion result replaced by the local one (must
+     fail); diag_poseopt_torch.py's 18 initializations; diag_replay_torch
+     and diag_gnsteps_torch on the reference's two VGA dumps, and the
+     replays with the pose gates exchanged (must fail);
  12. one JSON line of the kernels (orb_describe: launches from the main
      path of 5, host-in-the-loop, and per phase, with its KITTI-pair,
-     EuRoC- and corridor-shape numbers; extract_patches: its launches on the BRIEF
+     EuRoC-, corridor- and KITTI-probe-frame numbers; extract_patches: its
+     launches on the BRIEF
      harvest of 11 and its numbers at the harvest's shapes, one render's
      launch beside the 8 per-level launches it took before, with the
      frame-shape numbers of 2 beside them), the phase
@@ -558,7 +582,7 @@ def patch_levels_row(levels, ys, xs, lvl, tag):
 
 
 def phase_describe(ex, levels, corners, tag: str = "TUM VGA",
-                   halves=None):
+                   halves=None, timed: bool = True):
     """orb_describe against its plain version at the main path's shapes:
     one launch for an image's keypoints over all levels (or, for a stereo
     pair, both images' in one launch of a 16-level table: `halves` then
@@ -570,7 +594,8 @@ def phase_describe(ex, levels, corners, tag: str = "TUM VGA",
     (counted and printed); descriptors bit-exact wherever the two angles
     fall in the same bin; bins equal for >= 99.9% of keypoints. The kernel
     sums the moments in another order than torch, and the bin rounding
-    and the gate see that; the blur and bf16 rounding are bit-exact."""
+    and the gate see that; the blur and bf16 rounding are bit-exact.
+    timed=False checks the launch only (no timings in the row)."""
     import torch
     from object_slam_tpu_torch.ops import describe as dsc
 
@@ -605,10 +630,13 @@ def phase_describe(ex, levels, corners, tag: str = "TUM VGA",
     bad_bits = int(torch.sum(k_desc[same] != p_desc[same]))
     n = cy.shape[0]
 
-    ms = cuda_time_ms(lambda: call(lv, cy, cx, lvl))
-    dev_ms = device_ms(lambda: call(lv, cy, cx, lvl), "orb_describe_kernel")
-    plain_ms = cuda_time_ms(lambda: dsc.orb_describe_ref(*args,
-                                                         radius=radius))
+    ms = dev_ms = plain_ms = float("nan")
+    if timed:
+        ms = cuda_time_ms(lambda: call(lv, cy, cx, lvl))
+        dev_ms = device_ms(lambda: call(lv, cy, cx, lvl),
+                           "orb_describe_kernel")
+        plain_ms = cuda_time_ms(lambda: dsc.orb_describe_ref(
+            *args, radius=radius))
     two = {}
     if halves is not None:
         calls = []
@@ -633,9 +661,10 @@ def phase_describe(ex, levels, corners, tag: str = "TUM VGA",
         def run_two():
             for call, *a in calls:
                 call(*a)
-        two = {"two_launches_ms": cuda_time_ms(run_two),
-               "two_launches_device_ms": device_ms(run_two,
-                                                   "orb_describe_kernel")}
+        if timed:
+            two = {"two_launches_ms": cuda_time_ms(run_two),
+                   "two_launches_device_ms": device_ms(
+                       run_two, "orb_describe_kernel")}
     # bound: the raw pixels the 38x38 wrapped windows touch (the union per
     # level), the BRIEF table rows of the bins in use (two int16 tables),
     # the corner and level arrays read once, angle and descriptor written
@@ -3660,7 +3689,13 @@ BRIEF_RENDERS = 48
 # products, whose last-ulp differences move a few FAST responses across a
 # quarter step), plus a margin of 6 for such keypoints that another card's
 # arithmetic may tip
-VOCAB_DESC_DIFF = 24
+# the card's vocabulary harvest takes the reference's pyramid order
+# (features/pyramid.py, order="xla"), so it parts from the reference's
+# only where the CPU port's does: in at most the CPU port's 4 rows
+# (vocab_train.npz cpu_port.diff_rows, keypoints on a bin boundary or the
+# angle's stability gate), and only in those rows
+VOCAB_DESC_DIFF = 4
+VOCAB_LEVELS_RENDER = (1, 0)       # scene seed, loop_trajectory(8) pose
 TOOLS_ARG = "--tools-phases"
 
 
@@ -3846,18 +3881,59 @@ def phase_experiments(root, card):
     return launches
 
 
-def phase_train_vocab(card):
-    """scripts/train_vocab_torch.py at full size: its harvest on the card
-    (10 scenes x 8 poses of loop_trajectory, one orb_describe per render)
-    against the reference's CPU harvest (vocab_train.npz): at most
-    VOCAB_DESC_DIFF of the rows may differ (the port's CPU harvest parts
-    from the reference's in 4 of its 67,246 rows, keypoints on a bin
-    boundary or the angle's stability gate; the card's in 18, its pyramid
-    rounding otherwise). Then the host training on the reference's
-    descriptors, byte for byte the reference's file (its sha256); and on
-    the card's own, its file's sha256 printed beside it (byte-equal only
-    when no row differs, and then held)."""
+def hold_harvest_levels(card):
+    """One vocabulary-harvest render's 8 pyramid levels (VOCAB_LEVELS_RENDER)
+    in the reference's order on the card (pyramid.build_pyramid(...,
+    order="xla"), what the harvests take) bit-equal to the CPU port's
+    levels of the same render and to the reference's recorded sha256
+    (xla_resize_check.npz); the tracking paths' matrix products printed
+    beside them."""
     import hashlib
+    import torch
+    from object_slam_tpu_torch.config import SlamConfig
+    from object_slam_tpu_torch.datasets.synthetic import (SyntheticScene,
+                                                          loop_trajectory)
+    from object_slam_tpu_torch.features import pyramid as pyr
+    seed, pose = VOCAB_LEVELS_RENDER
+    cfg = SlamConfig.tum_rgbd()
+    scene = SyntheticScene.make(cfg, seed=seed, n_objects=2,
+                                plane_z=3.2 + 0.3 * seed)
+    gray = np.asarray(scene.render_rgbd(loop_trajectory(8)[pose])[0],
+                      np.float32)
+    img = torch.from_numpy(gray)
+    card_lv = [x.cpu() for x in pyr.build_pyramid(img.cuda(), 8, 1.2,
+                                                  order="xla")]
+    prod_lv = [x.cpu() for x in pyr.build_pyramid(img.cuda(), 8, 1.2)]
+    cpu_lv = pyr.build_pyramid(img, 8, 1.2)
+    want = np.load(os.path.join(FIXTURES, "xla_resize_check.npz"))[
+        f"{seed}_{pose}.level_sha256"].tolist()
+    sha = [hashlib.sha256(np.ascontiguousarray(x.numpy()).tobytes())
+           .hexdigest() for x in card_lv]
+    equal = [torch.equal(a, b) for a, b in zip(card_lv, cpu_lv)]
+    prod = [int((a != b).sum()) for a, b in zip(prod_lv, cpu_lv)]
+    print(f"train_vocab [{card}]: render (scene {seed}, pose {pose}): the "
+          f"card's levels in the reference's order equal the CPU port's "
+          f"{equal}, the reference's sha256 {[a == b for a, b in zip(sha, want)]}"
+          f"; the matrix products' levels differ from them in {prod} "
+          f"pixels", flush=True)
+    if not all(equal) or sha != want:
+        fail("train_vocab: the card's harvest pyramid is not the CPU port's "
+             "(the reference's) bit for bit")
+
+
+def phase_train_vocab(card):
+    """scripts/train_vocab_torch.py at full size: first hold_harvest_levels;
+    then its harvest on the card (10 scenes x 8 poses of loop_trajectory,
+    one orb_describe per render, the reference's pyramid order) against
+    the reference's CPU harvest (vocab_train.npz): at most VOCAB_DESC_DIFF
+    rows may differ, each one where the CPU port's harvest parts from the
+    reference's (cpu_port.diff_rows: 4 of 67,246 rows, keypoints on a bin
+    boundary or the angle's stability gate). Then the host training on the
+    reference's descriptors, byte for byte the reference's file (its
+    sha256); and on the card's own, its file's sha256 printed beside it
+    (byte-equal only when no row differs, and then held)."""
+    import hashlib
+    hold_harvest_levels(card)
     tv = script_module("train_vocab_torch")
     ref = np.load(VOCAB_REF)
     zero_counts()
@@ -3873,7 +3949,9 @@ def phase_train_vocab(card):
     if descs.shape != want.shape:
         fail(f"train_vocab: {descs.shape[0]} descriptors, the reference "
              f"{want.shape[0]}")
-    n_diff = int(np.any(descs != want, axis=1).sum())
+    diff_rows = np.flatnonzero(np.any(descs != want, axis=1))
+    n_diff = int(diff_rows.size)
+    cpu_rows = ref["cpu_port.diff_rows"]
     # keypoints of equal response come out of the top-k in either order:
     # the rows of the card's harvest missing from the reference's multiset
     from collections import Counter
@@ -3893,17 +3971,19 @@ def phase_train_vocab(card):
     want_sha = str(ref["full.sha256"])
     print(f"train_vocab [{card}]: {descs.shape[0]} descriptors harvested "
           f"in {harvest_s:.1f} s, {n_diff} rows differ from the reference "
-          f"harvest's (limit {VOCAB_DESC_DIFF}; {n_set} not in it at any "
-          f"row); {n_words} words trained in "
+          f"harvest's ({diff_rows.tolist()}; the CPU port's "
+          f"{cpu_rows.tolist()}; limit {VOCAB_DESC_DIFF}; {n_set} not in it "
+          f"at any row); {n_words} words trained in "
           f"{train_s:.1f} s; the file from the reference's descriptors "
           f"{sha_ref_descs} (the reference CPU run's {want_sha}: equal "
           f"{sha_ref_descs == want_sha}); from the card's {sha} (equal "
           f"{sha == want_sha}); the committed vocab_synth.txt "
           f"{str(ref['committed.sha256'])}; launches {launches}",
           flush=True)
-    if n_diff > VOCAB_DESC_DIFF:
-        fail(f"train_vocab: {n_diff} descriptor rows differ from the "
-             f"reference's (limit {VOCAB_DESC_DIFF})")
+    if n_diff > VOCAB_DESC_DIFF or not set(diff_rows) <= set(cpu_rows):
+        fail(f"train_vocab: descriptor rows {diff_rows.tolist()} differ "
+             f"from the reference's (limit {VOCAB_DESC_DIFF}, only the CPU "
+             f"port's {cpu_rows.tolist()})")
     if sha_ref_descs != want_sha:
         fail("train_vocab: the training on the reference's descriptors "
              "differs from the reference's file")
@@ -3925,6 +4005,33 @@ def brief_tie(sel, chosen, at, want_tests):
         return k, float("inf")
     r = sel.corr([chosen[k], want_tests[k]], chosen[:k]).max(1)
     return k, float(np.min(np.abs(r - at[k])))
+
+
+def harvest_angle_share():
+    """The share of the BRIEF harvest's first render's valid keypoints
+    whose IC angle from orb_describe differs in any bit from its plain
+    version's on the same levels and corners (the kernel sums the moments
+    in another order): the windows, rotated by these angles, differ from
+    the CPU port's at least there. One launch, outside the counted
+    harvest."""
+    import torch
+    from object_slam_tpu_torch.config import SlamConfig
+    from object_slam_tpu_torch.datasets.synthetic import (SyntheticScene,
+                                                          orbit_poses)
+    from object_slam_tpu_torch.features.extractor import OrbExtractor
+    from object_slam_tpu_torch.ops import describe as dsc
+    cfg = SlamConfig.tum_rgbd()
+    scene = SyntheticScene.make(cfg, seed=0, n_objects=2, plane_z=3.0)
+    gray = scene.render_rgbd(orbit_poses(8, radius=0.5, step=0.05)[0])[0]
+    ex = OrbExtractor(cfg, device="cuda", pyramid_order="xla")
+    img = torch.from_numpy(np.asarray(gray, np.float32)).cuda()
+    levels, det, cy, cx, counts = ex._detect(img)
+    lvl = ex._level_ids(counts, img.device)
+    k_ang, _ = ex._kernel(1, img.device)(levels, cy, cx, lvl)
+    p_ang, _ = dsc.orb_describe_ref(levels, cy, cx, lvl, ex.brief_idx1,
+                                    ex.brief_idx2, radius=cfg.orb.half_patch)
+    valid = det[2]
+    return float((k_ang != p_ang)[valid].double().mean())
 
 
 def phase_train_brief(card):
@@ -3973,6 +4080,14 @@ def phase_train_brief(card):
                  if int((lv == l).sum())]
     ref_calls = ref["full.calls"].tolist()
     sums = patches.reshape(patches.shape[0], -1).sum(1).cpu().numpy()
+    # the windows that differ from the CPU port's (its windows' hashes:
+    # the same pyramid order, so the same windows where the rest rounds
+    # alike)
+    hashes = brief_cases.window_hashes(patches.cpu().numpy())
+    cpu_hash = ref["cpu_port.window_hash"]
+    n_win_diff = (int((hashes != cpu_hash).sum())
+                  if hashes.shape == cpu_hash.shape else -1)
+    angle_share = harvest_angle_share()
     rel = (np.abs(sums - ref["full.sums"]) / np.abs(ref["full.sums"])
            if sums.shape == ref["full.sums"].shape else np.array([np.inf]))
     # extract_patches at these shapes: the first render's launch, beside
@@ -4020,7 +4135,11 @@ def phase_train_brief(card):
           f"version; "
           f"per-level counts equal to the reference harvest's "
           f"{got_calls == ref_calls} ({len(got_calls)} / {len(ref_calls)} "
-          f"calls); patch sums against the reference's: max relative "
+          f"calls); {n_win_diff} of {hashes.size} windows differ from the "
+          f"CPU port's harvest (window hashes; the first render's IC angles "
+          f"from the kernel differ from its plain version's in "
+          f"{angle_share:.4f} of its keypoints, and each window is rotated "
+          f"by its angle); patch sums against the reference's: max relative "
           f"{float(rel.max()):.3e}, median {float(np.median(rel)):.3e}; "
           f"selection over {tb.N_CANDIDATES} draws -> {len(sel8.ia)} tests x "
           f"{patches.shape[0]} patches ({bits_bytes / 2 ** 30:.2f} GiB of "
@@ -4045,7 +4164,8 @@ def phase_train_brief(card):
     row["launches"] = launches["extract_patches"]
     return launches, {"harvest_s": harvest_s, "bits_s": bits_s,
                       "select_s": select_s, "select8_s": select8_s,
-                      "bits_bytes": bits_bytes}, row
+                      "bits_bytes": bits_bytes,
+                      "windows_differ_from_cpu": n_win_diff}, row
 
 
 def tools_child_main(out_json: str):
@@ -4755,8 +4875,10 @@ def phase_study_semantic(card):
 
 def studies_child_main(out_json: str):
     """The fourth process: the accuracy studies (phase_study_variants,
-    phase_study_corridor, phase_study_semantic) on the card, then the
-    kidnap with loop closing on (phase_kidnap_loop); the launches by
+    phase_study_corridor, phase_study_semantic) on the card, the retention
+    and pose-solver probes (phase_probe_retention, phase_probe_pose), the
+    sharded GBA, then the kidnap with loop closing on
+    (phase_kidnap_loop); the launches by
     phase, the phase seconds, the corridor's own events and orb_describe's
     row at the corridor's shapes written to out_json."""
     import torch
@@ -4775,6 +4897,13 @@ def studies_child_main(out_json: str):
     by_phase.update({f"study_corridor_{k}": v for k, v in cor.items()})
     sem = phase_timed("study_semantic", phase_study_semantic, card)
     by_phase.update({f"study_{k}": v for k, v in sem.items()})
+    # the retention and pose-solver probes of slice 12
+    by_phase.update(phase_timed("probe_retention", phase_probe_retention,
+                                card))
+    by_phase.update(phase_timed("probe_pose", phase_probe_pose, card))
+    # the sharded GBA (10) runs here, beside the second process's KITTI
+    # phases, for the time limit
+    phase_timed("sharded_ba", phase_sharded_ba, card)
     # the kidnap with loop closing on (7b) runs here, beside the main
     # process's other phases, for the time limit
     by_phase["kidnap_loop"], _ = phase_timed("kidnap_loop",
@@ -4785,6 +4914,396 @@ def studies_child_main(out_json: str):
                    "corridor_row": {k: row[k] for k in (
                        "max_abs_err", "ms", "device_ms", "plain_ms",
                        "bound_ms", "bound_by")}}, f)
+
+
+# ---------------------------------------------------------------------------
+# the tracking-retention probes (scripts/diag_*_torch.py of slice 12)
+# ---------------------------------------------------------------------------
+
+PROBES_REF = os.path.join(FIXTURES, "probes_vga.npz")
+# the fixture's depths (make_reference.py PROBE_*_VGA, PROBE_*NOISE*)
+# the depths run here, for the time limit: the first frames of the
+# fixture's runs (30 / 12 TUM, 12 KITTI), held frame by frame
+PROBE_RET_FRAMES, PROBE_LOC_FRAMES, PROBE_LOC_FAULT_FRAMES = 20, 8, 4
+PROBE_KRET_FRAMES, PROBE_KITTI_FRAMES, PROBE_KITTI_FAULT_FRAMES = 12, 8, 8
+PROBE_NOISE_RUNS, PROBE_LOC_NOISE_RUNS, PROBE_POSE_NOISE_RUNS = 6, 3, 8
+# the retention probe at TUM VGA: the TUM checks' limits (records 2 mm /
+# 0.1 deg) on its errors and map distances, 2 percentage points on the
+# share of wrong matches, 5% on match counts and 2% on the map's points
+# (the card's pyramid sums in another order than XLA:CPU, which moves a
+# few keypoints), every other count exact; each beside 2x the spread of
+# the reference's pinned one-ulp noise runs, whichever is wider
+PROBE_RET_TOL = {"err_mm": 2.0, "dC_mm": 2.0, "motion.err_mm": 2.0,
+                 "local.err_mm": 2.0, "map3d": 2.0, "rot_deg": 0.1,
+                 "motion.wrong": 2.0, "local.wrong": 2.0}
+PROBE_RET_RTOL = {"motion.n": 0.05, "local.n": 0.05, "pts": 0.02}
+# the pose-solver probes: tests/test_torch_probes.py's limits, but for the
+# replays' poses and median chi2: the card's LM sums in another order, and
+# from the predicted pose of the reference's dump 1 it stops 0.07 mm from
+# the reference's solution (median chi2 there 1.3% off; H100 80GB HBM3)
+PROBE_POSE_ERR_MM = 0.02
+PROBE_REPLAY_MM = 0.1
+PROBE_REPLAY_TOL = {"init_T_pred": PROBE_REPLAY_MM,
+                    "init_Tcw_local": PROBE_REPLAY_MM,
+                    "init_T_gt": PROBE_REPLAY_MM,
+                    "wrong_basin": PROBE_REPLAY_MM,
+                    "right_basin": PROBE_REPLAY_MM, "recorded": 1e-6,
+                    "cost_gt": 1e-6, "start_err_mm": 1e-6,
+                    "steps": PROBE_REPLAY_MM}
+PROBE_REPLAY_RTOL = {"cost_wrong.median_chi2": 0.02,
+                     "cost_right.median_chi2": 0.02, "cost_wrong": 1e-3,
+                     "cost_right": 1e-3}
+PROBE_GN_RTOL = {"steps": 0.25}
+# the KITTI probes: tests/test_torch_probes_kitti.py's limits (the frame
+# build's counts 1% on the card, whose pyramid rounds otherwise; the
+# drive's pose error 0.1 m, KITTI_OWN_ATE_M)
+PROBE_KRET_RTOL = 0.01
+PROBE_KITTI_TOL = {"err_m": 0.1}
+PROBE_KITTI_RTOL = {"inl": 0.05, "kps": 0.01, "depth": 0.01, "close": 0.01}
+PROBE_LREC_RTOL = {"close_vis": 0.05, "matched": 0.05}
+PROBE_LREC_GATES = ("no_local", "frustum", "no_kp_radius", "level", "desc",
+                    "lost", "level_would_pass_w2", "radius_would_pass_2x")
+PROBE_TOTAL_RTOL = 0.1
+PROBE_MCHAIN_TOL, PROBE_MCHAIN_RTOL, PROBE_MCHAIN_TOTAL_RTOL = 2.0, 0.05, 0.02
+
+
+def probe_bands_module():
+    sys.path.insert(0, FIXTURES)
+    import probe_bands
+    return probe_bands
+
+
+def probe_misses(name, got, main, noise, strict=True, **kw):
+    """probe_bands.misses of table got against the reference's table main
+    and its noise runs' tables; printed; fatal when strict and anything
+    misses. Returns the misses."""
+    bad = probe_bands_module().misses(got, main, noise, **kw)
+    print(f"probe {name}: {len(bad)} of {sum(v.size for v in main.values())}"
+          f" numbers outside their bands"
+          + ("" if not bad else ": " + "; ".join(
+              f"{k} frame {i}: {g} against {w} (limit {lim})"
+              for k, i, g, w, lim in bad[:12])), flush=True)
+    if strict and bad:
+        fail(f"probe {name}: {len(bad)} numbers outside their bands")
+    return bad
+
+
+def _first_frames(t, n):
+    keep = t["f"] < n
+    return {k: v[keep] for k, v in t.items()}
+
+
+def phase_probe_retention(card, strict=True):
+    """scripts/diag_retention_torch.py at TUM VGA (SlamConfig.tum_rgbd(),
+    objects off) through its run() on the first PROBE_RET_FRAMES frames of
+    its default 30-frame orbit of the room scene, OSLAM_DUMP's writer on
+    (a frame past 20 mm is dumped in the reference's keys), each frame
+    held to the reference's run (probes_vga.npz) with PROBE_RET_* beside
+    its 6 pinned noise runs; then --loc-only on PROBE_LOC_FRAMES frames
+    (the staged path each frame: the motion and local results differ)
+    against the reference's and its 3 noise runs, and the same on
+    PROBE_LOC_FAULT_FRAMES frames with debug_last's motion result replaced
+    by the local one (faults.motion_snapshot_is_local), which must miss.
+    One orb_describe per frame asserted in each run. Returns the launches
+    by run."""
+    import torch
+    from object_slam_tpu_torch.config import SlamConfig
+    sys.path.insert(0, FIXTURES)
+    import faults
+    pb = probe_bands_module()
+    dr = script_module("diag_retention_torch")
+    ref = np.load(PROBES_REF)
+    out = {}
+    dump_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "probe_dumps")
+    for name, loc, n, hook in (
+            ("main", False, PROBE_RET_FRAMES, None),
+            ("loc", True, PROBE_LOC_FRAMES, None),
+            ("loc_fault", True, PROBE_LOC_FAULT_FRAMES,
+             faults.motion_snapshot_is_local)):
+        args = dr.parse_args(["--frames", str(n)]
+                             + (["--loc-only"] if loc else []))
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        res = dr.run(SlamConfig.tum_rgbd(), args, device="cuda",
+                     log=lambda s: None, on_system=hook,
+                     dump_dir=dump_dir if name == "main" else "")
+        wall = time.perf_counter() - t0
+        out[f"retention_{name}"] = read_counts(f"probe retention {name}", n)
+        run = "loc" if loc else "main"
+        runs = ([f"ret_vga.locnoise{k}.recs"
+                 for k in range(PROBE_LOC_NOISE_RUNS)] if loc else
+                [f"ret_vga.noise{k}.recs" for k in range(PROBE_NOISE_RUNS)])
+        print(f"probe retention {name} [{card}]: {json.dumps(res['summary'])}"
+              f"; {wall / n * 1e3:.1f} ms/frame; dumps "
+              f"{[os.path.basename(p) for p in res['dumps']]}", flush=True)
+        bad = probe_misses(f"retention {name}", pb.table(res["frames"]),
+                           _first_frames(pb.load(ref, f"ret_vga.{run}.recs"),
+                                         n),
+                           [_first_frames(pb.load(ref, r), n) for r in runs],
+                           strict=strict and name != "loc_fault",
+                           tol=PROBE_RET_TOL, rtol=PROBE_RET_RTOL)
+        if name == "main":
+            for p in res["dumps"]:
+                with np.load(p) as d:
+                    if set(d.files) != set(
+                            k.split(".", 2)[2] for k in ref.files
+                            if k.startswith("ret_vga.dump0.")):
+                        fail(f"probe retention: dump {p} lacks the "
+                             f"reference's keys")
+        if name == "loc_fault" and not any(
+                k.startswith("motion.") for k, *_ in bad):
+            fail("probe retention: debug_last's motion result replaced by "
+                 "the local one passes every check")
+    return out
+
+
+def phase_probe_pose(card, strict=True):
+    """scripts/diag_poseopt_torch.py's 18 initializations on the card
+    against the reference's rows and 8 one-ulp noise runs; then
+    diag_replay_torch.py and diag_gnsteps_torch.py on the reference's two
+    VGA dumps against the reference's replays of them; then the replays
+    with pose_opt's chi2 gates exchanged (faults.exchange_pose_gates),
+    which must miss. No frame is built: 0 launches asserted."""
+    import torch
+    sys.path.insert(0, FIXTURES)
+    import faults
+    pb = probe_bands_module()
+    ref = np.load(PROBES_REF)
+    po = script_module("diag_poseopt_torch")
+    rp = script_module("diag_replay_torch")
+    gn = script_module("diag_gnsteps_torch")
+    zero_counts()
+    t0 = time.perf_counter()
+    res = po.run(device="cuda", log=lambda s: None)
+    pose_s = time.perf_counter() - t0
+    cols = ("dt_mm", "dr_deg", "err_mm", "n_inl")
+    got = {c: np.asarray([r[c] for r in res["rows"]], np.float64)
+           for c in cols}
+    main = {c: ref["pose.rows"][:, i] for i, c in enumerate(cols)}
+    noise = [{c: ref[f"pose.noise.{k}.rows"][:, i]
+              for i, c in enumerate(cols)}
+             for k in range(PROBE_POSE_NOISE_RUNS)]
+    if res["n_valid"] != int(ref["pose.n_valid"]):
+        fail(f"probe poseopt: {res['n_valid']} valid points, the reference "
+             f"{int(ref['pose.n_valid'])}")
+    print(f"probe poseopt [{card}]: 18 initializations in {pose_s:.2f} s; "
+          f"errors {[round(r['err_mm'], 3) for r in res['rows']]} mm; "
+          f"inliers {sorted(set(r['n_inl'] for r in res['rows']))}",
+          flush=True)
+    probe_misses("poseopt", got, main, noise, strict=strict,
+                 tol={"err_mm": PROBE_POSE_ERR_MM})
+
+    def dump(j):
+        p = f"ret_vga.dump{j}."
+        return {k[len(p):]: ref[k] for k in ref.files if k.startswith(p)}
+
+    def replays(strict_now):
+        bad = []
+        for j in (0, 1):
+            r = rp.run(dump(j), device="cuda", log=lambda s: None)
+            bad += probe_misses(f"replay of dump {j}", pb.table([r]),
+                                pb.load(ref, f"replay{j}"), [],
+                                strict=strict_now, tol=PROBE_REPLAY_TOL,
+                                rtol=PROBE_REPLAY_RTOL)
+        return bad
+    replays(strict)
+    for j in (0, 1):
+        g = pb.table([gn.run(dump(j), device="cuda", log=lambda s: None)])
+        want = pb.load(ref, f"gnsteps{j}")
+        probe_misses(f"gnsteps of dump {j}", g,
+                     {k: v for k, v in want.items()
+                      if not k.endswith("step_mm")}, [],
+                     strict=strict, tol=PROBE_REPLAY_TOL, rtol=PROBE_GN_RTOL)
+        ends = [k for k in want if k.startswith(tuple(
+            f"steps[{i}]." for i in range(9, 40, 10)))]
+        probe_misses(f"gnsteps of dump {j}, the rounds' ends", g,
+                     {k: want[k] for k in ends}, [], strict=strict,
+                     tol={"steps": PROBE_REPLAY_MM})
+    undo = faults.exchange_pose_gates()
+    try:
+        bad = replays(False)
+    finally:
+        undo()
+    if not bad:
+        fail("probe replays: pose_opt's gates exchanged pass every check")
+    torch.cuda.synchronize()
+    return {"pose_probes": read_counts("pose probes", 0)}
+
+
+def probe_kf_replay(kf_frames, decisions):
+    """An on_system hook giving each fused frame the reference run's
+    keyframe decision (frame in kf_frames), its own kept in decisions."""
+    from object_slam_tpu_torch.slam import tracking as trk
+    want = set(int(f) for f in kf_frames)
+
+    def hook(sys_):
+        own = sys_._need_keyframe
+
+        def need_keyframe(pend, p):
+            decisions[pend["fid"]] = (own(pend, p),
+                                      int(p[trk.PACKED_N_INLIERS]))
+            return pend["fid"] in want
+        sys_._need_keyframe = need_keyframe
+    return hook
+
+
+def hold_describe_frame(seq, index, card):
+    """One orb_describe launch at a KITTI probe frame's own shapes (the
+    pair's keypoints as the extractor detects them, both images in one
+    launch) against orb_describe_ref: phase_describe's tolerances."""
+    import torch
+    from object_slam_tpu_torch.config import SlamConfig
+    from object_slam_tpu_torch.datasets import kitti
+    from object_slam_tpu_torch.datasets.png import read_png
+    from object_slam_tpu_torch.features.extractor import OrbExtractor
+    cfg = SlamConfig.kitti_stereo()
+    ex = OrbExtractor(cfg, device="cuda")
+    fr = kitti.load_sequence(seq)[index]
+    levels, corners = [], []
+    for path in (fr.left_path, fr.right_path):
+        img = torch.from_numpy(read_png(path).astype(np.float32)).cuda()
+        lv, _, cy, cx, counts = ex._detect(img)
+        off, start = len(levels), 0
+        for l, n in counts:
+            corners.append((l + off, cy[start:start + n],
+                            cx[start:start + n]))
+            start += n
+        levels += lv
+    half = len(corners) // 2
+    return phase_describe(ex, levels, corners,
+                          tag=f"KITTI probe frame {index}",
+                          halves=(corners[:half], corners[half:]),
+                          timed=False)
+
+
+def phase_probe_kitti(card, poses, frames, strict=True):
+    """The four KITTI probes at full width on a KITTI directory of the 24
+    street frames (datasets/kitti.py::write_sequence, the port's PNG
+    writer), each through its run() over the directory's first frames
+    (PROBE_KRET_FRAMES, PROBE_KITTI_FRAMES) and held frame by frame (and
+    in its totals over those frames) to the reference's run
+    (probes_vga.npz) beside its 6 pinned noise runs: diag_kitti_retention_torch.py (the frame build
+    alone), diag_kitti_torch.py (objects on, async),
+    diag_local_recovery_torch.py and diag_motion_chain_torch.py (the system
+    as the scripts make it), the three drives with the reference run's
+    keyframe decisions replayed (their own printed where they part); one
+    orb_describe per pair asserted in each; one launch at a probe frame's
+    shapes held to its plain version; then the motion chain with the level
+    window made symmetric (faults.symmetric_motion_level_window) on
+    PROBE_KITTI_FAULT_FRAMES frames, which must miss."""
+    import torch
+    from object_slam_tpu_torch.config import SlamConfig
+    from object_slam_tpu_torch.datasets import kitti
+    sys.path.insert(0, FIXTURES)
+    import faults
+    pb = probe_bands_module()
+    ref = np.load(PROBES_REF)
+    seq = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "probe_kitti")
+    t0 = time.perf_counter()
+    kitti.write_sequence(seq, poses, frames)
+    print(f"probe KITTI directory: {len(frames)} pairs written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    kcfg = SlamConfig.kitti_stereo()
+    n = PROBE_KITTI_FRAMES
+    out = {}
+
+    def tables(name, tab="recs"):
+        return (pb.load(ref, f"{name}.main.{tab}"),
+                [pb.load(ref, f"{name}.noise{k}.{tab}")
+                 for k in range(PROBE_NOISE_RUNS)])
+
+    def run(key, script, n_frames, kfs=None, **kw):
+        mod = script_module(script)
+        args = mod.parse_args(["--seq", seq, "--frames", str(n_frames)])
+        decisions = {}
+        if kfs is not None:
+            kw["on_system"] = probe_kf_replay(kfs, decisions)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        res = mod.run(kcfg, args, device="cuda", log=lambda s: None, **kw)
+        wall = time.perf_counter() - t0
+        out[f"probe_{key}"] = read_counts(f"probe {key}", n_frames)
+        own = sorted(f for f, (d, _) in decisions.items() if d)
+        differ = [f for f in sorted(decisions)
+                  if decisions[f][0] != (f in set(int(x) for x in kfs))] \
+            if kfs is not None else []
+        print(f"probe {key} [{card}]: {n_frames} frames, "
+              f"{wall / n_frames * 1e3:.1f} ms/frame"
+              + ("" if kfs is None else
+                 f"; keyframes replayed {[int(x) for x in kfs]}, its own "
+                 f"decisions {own}, first parting at "
+                 f"{differ[0] if differ else None} "
+                 f"({decisions[differ[0]][1] if differ else ''} inliers)"),
+              flush=True)
+        return res
+
+    res = run("kitti_retention", "diag_kitti_retention_torch",
+              PROBE_KRET_FRAMES)
+    main, nz = tables("kret_vga")
+    probe_misses("kitti_retention", pb.table(res["frames"]), main, nz,
+                 strict=strict, rtol={k: PROBE_KRET_RTOL for k in main})
+    main, nz = tables("kret_vga", "totals")
+    probe_misses("kitti_retention totals",
+                 pb.table([dict(res["totals"], jumps=res["jumps"])]), main,
+                 nz, strict=strict, rtol={k: PROBE_KRET_RTOL for k in main},
+                 tol={k: 3.0 for k in main if k.startswith("jumps")})
+    def first(name, n_frames):
+        main, nz = tables(name)
+        return (_first_frames(main, n_frames),
+                [_first_frames(t, n_frames) for t in nz])
+
+    def sums(t):
+        return {k: np.asarray([np.nansum(v)]) for k, v in t.items()
+                if k != "f"}
+
+    res = run("kitti", "diag_kitti_torch", n, ref["kitti_vga.main.kf_frames"])
+    probe_misses("kitti", pb.table(res["frames"]), *first("kitti_vga", n),
+                 strict=strict, tol=PROBE_KITTI_TOL, rtol=PROBE_KITTI_RTOL)
+    res = run("local_recovery", "diag_local_recovery_torch", n,
+              ref["lrec_vga.main.kf_frames"])
+    got = pb.table(res["per_frame"])
+    main, nz = first("lrec_vga", n)
+    probe_misses("local_recovery", got, main, nz, strict=strict,
+                 rtol=PROBE_LREC_RTOL, skip=PROBE_LREC_GATES)
+    sm = sums(main)
+    probe_misses("local_recovery totals", sums(got), sm,
+                 [sums(t) for t in nz], strict=strict,
+                 rtol={k: PROBE_TOTAL_RTOL for k in sm})
+
+    def mchain_misses(res, n_frames, strict_now):
+        main, nz = first("mchain_vga", n_frames)
+        got = pb.table(res["per_frame"])
+        bad = probe_misses(f"motion_chain ({n_frames} frames)", got, main,
+                           nz, strict=strict_now,
+                           tol={k: PROBE_MCHAIN_TOL for k in main if k != "f"},
+                           rtol={k: PROBE_MCHAIN_RTOL for k in main})
+        sm = sums(main)
+        bad += probe_misses(f"motion_chain totals ({n_frames} frames)",
+                            sums(got), sm, [sums(t) for t in nz],
+                            strict=strict_now,
+                            tol={k: PROBE_MCHAIN_TOL for k in sm},
+                            rtol={k: PROBE_MCHAIN_TOTAL_RTOL for k in sm})
+        return bad
+    kfs = ref["mchain_vga.main.kf_frames"]
+    mchain_misses(run("motion_chain", "diag_motion_chain_torch", n, kfs), n,
+                  strict)
+    row = hold_describe_frame(seq, n - 1, card)
+    undo = faults.symmetric_motion_level_window()
+    try:
+        bad = mchain_misses(run("motion_chain_fault",
+                                "diag_motion_chain_torch",
+                                PROBE_KITTI_FAULT_FRAMES, kfs),
+                            PROBE_KITTI_FAULT_FRAMES, False)
+    finally:
+        undo()
+    if not any(k.startswith(("matched", "inlier")) for k, *_ in bad):
+        fail("probe motion_chain: the symmetric level window passes every "
+             "check on the matches and inliers")
+    return out, {k: row[k] for k in ("max_abs_err", "bound_ms", "bound_by")}
 
 
 PHASE_S = {}
@@ -4845,17 +5364,22 @@ def kitti_phases(by_phase, card):
     by_phase["kitti_driver"] = phase_timed(
         "kitti_driver", phase_kitti_driver, kitti_poses, kitti_frames, card)
     phase_timed("kitti_prefetch", phase_kitti_prefetch, card)
-    return {k: kitti_row[k] for k in (
+    # the KITTI retention probes of slice 12 on these frames
+    probes, probe_row = phase_timed("probe_kitti", phase_probe_kitti, card,
+                                    kitti_poses, kitti_frames)
+    by_phase.update(probes)
+    return dict({k: kitti_row[k] for k in (
         "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-        "two_launches_ms", "two_launches_device_ms")}
+        "two_launches_ms", "two_launches_device_ms")},
+        probe_frame=probe_row)
 
 
 def mono_child_main(out_json: str):
-    """The second process: mono_phases, the sharded GBA, batched tracking,
-    then kitti_phases, on the same card; its results (the launches by
-    phase, the phase seconds, the mono, GBA and batched ms, orb_describe's
-    KITTI-shape numbers) written to out_json. It renders its own frames
-    for the checkpoint and batched phases."""
+    """The second process: mono_phases, batched tracking, then
+    kitti_phases, on the same card; its results (the launches by phase,
+    the phase seconds, the mono and batched ms, orb_describe's KITTI-shape
+    numbers) written to out_json. It renders its own frames for the
+    checkpoint and batched phases."""
     import torch
     from object_slam_tpu_torch.ops import build
     if not torch.cuda.is_available():
@@ -4865,15 +5389,13 @@ def mono_child_main(out_json: str):
     _, frames, sems = render(tum_cfg(), CKPT_FRAMES)
     by_phase = {}
     mono_ms, init_ms = mono_phases(by_phase, card, frames, sems)
-    gba_ms = phase_timed("sharded_ba", phase_sharded_ba, card)
     by_phase["batched"], batched_ms = phase_timed("batched", phase_batched,
                                                   card, frames)
     kitti_row = kitti_phases(by_phase, card)
     with open(out_json, "w") as f:
         json.dump({"by_phase": by_phase, "phase_s": PHASE_S,
                    "mono_ms": mono_ms, "init_ms": init_ms,
-                   "gba_ms": gba_ms, "batched_ms": batched_ms,
-                   "kitti_row": kitti_row}, f)
+                   "batched_ms": batched_ms, "kitti_row": kitti_row}, f)
 
 
 def start_child(arg: str = MONO_ARG, stem: str = "chip_smoke_mono"):
@@ -5016,6 +5538,7 @@ def main():
     by_phase["tum_driver_loop"] = phase_timed(
         "tum_driver_loop", phase_tum, main_cfg, poses, frames, sems, card,
         loop=True)
+
     rows[1]["kitti"] = finish_child(
         child, by_phase, "second (mono, localization, checkpoint, EuRoC "
         "driver, KITTI)", "second.")["kitti_row"]
@@ -5054,9 +5577,13 @@ def main():
             if not (isinstance(row[k], float) and math.isfinite(row[k])):
                 fail(f"{row['name']} row field {k} is not a finite number")
         for shape in ("kitti", "euroc", "tum_frame", "corridor"):
-            for k, v in row.get(shape, {}).items():
-                if k != "bound_by" and not (isinstance(v, float)
-                                            and math.isfinite(v)):
+            items = list(row.get(shape, {}).items())
+            while items:
+                k, v = items.pop()
+                if isinstance(v, dict):
+                    items += [(f"{k}.{a}", b) for a, b in v.items()]
+                elif k.split(".")[-1] != "bound_by" and not (
+                        isinstance(v, float) and math.isfinite(v)):
                     fail(f"{row['name']} {shape} field {k} is not a finite "
                          f"number")
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all; "

@@ -143,9 +143,12 @@ class OrbExtractor:
     Usage: ex = OrbExtractor(cfg, device="cpu"); kps = ex(image_f32)."""
 
     def __init__(self, cfg, height: int | None = None,
-                 width: int | None = None, device=None):
+                 width: int | None = None, device=None,
+                 pyramid_order: str = "auto"):
         self.cfg = cfg
         self.device = resolve_device(device)
+        # the offline harvests take "xla" (features/pyramid.py)
+        self.pyramid_order = pyramid_order
         o = cfg.orb
         self.h = height or cfg.camera.height
         self.w = width or cfg.camera.width
@@ -194,7 +197,8 @@ class OrbExtractor:
         Returns (levels, (uv, response, valid), cy, cx, counts)."""
         o = self.cfg.orb
         levels = [x.contiguous() for x in
-                  pyr_mod.build_pyramid(img, o.n_levels, o.scale_factor)]
+                  pyr_mod.build_pyramid(img, o.n_levels, o.scale_factor,
+                                        self.pyramid_order)]
         det, counts = [], []
         for l, lvl_img in enumerate(levels):
             n_l = self.budgets[l]

@@ -19,6 +19,14 @@ that follows the pyramid sums in another order than the CPU's anyway
 CPU port's run at a keyframe decision one inlier from its threshold), and
 the products are its paths' arithmetic since the first slice. The file is
 written by tests/torch_fixtures/make_reference.py xla_resize.
+
+The offline harvests (scripts/train_vocab_torch.py,
+train_brief_pattern_torch.py) track nothing, so they ask for XLA:CPU's
+order on every device (``order="xla"``): the plan's index and weight
+tensors move to the device, and index_select, float64 products and
+roundings to float32 round alike on any IEEE device, so the card's levels
+equal the CPU's bit for bit. Asking for that order at a size the file has
+no plan for raises; it never falls back to the products.
 """
 
 from __future__ import annotations
@@ -88,18 +96,19 @@ TAPS = 3
 _plan_cache: Dict[tuple, tuple] = {}
 
 
-def _plan(key):
-    """One product's plan as CPU tensors (built once): the flat tap
-    indices [n_out * 3], the weights [n_out, 3, 1] in float64 and the group
-    masks [n_out, 3, 1], with the rounded flag."""
-    if key not in _plan_cache:
+def _plan(key, device):
+    """One product's plan as tensors on `device` (built once per device):
+    the flat tap indices [n_out * 3], the weights [n_out, 3, 1] in float64
+    and the group masks [n_out, 3, 1], with the rounded flag."""
+    if (key, device) not in _plan_cache:
         start, w, group, rounded = _plans()[key]
         idx = np.minimum(start[:, None] + np.arange(TAPS), key[1] - 1)
-        _plan_cache[key] = (
-            torch.from_numpy(idx.reshape(-1).astype(np.int64)),
-            torch.from_numpy(w.astype(np.float64))[:, :, None],
-            torch.from_numpy(group.astype(bool))[:, :, None], rounded)
-    return _plan_cache[key]
+        _plan_cache[key, device] = (
+            torch.from_numpy(idx.reshape(-1).astype(np.int64)).to(device),
+            torch.from_numpy(w.astype(np.float64))[:, :, None].to(device),
+            torch.from_numpy(group.astype(bool))[:, :, None].to(device),
+            rounded)
+    return _plan_cache[key, device]
 
 
 def resize_taps(x, key, axis: int):
@@ -110,7 +119,7 @@ def resize_taps(x, key, axis: int):
     float32 partial sum and rounds once to float32 (XLA's FMA), or, for a
     rounded plan, adds the product rounded to float32. axis 0 contracts
     the rows of x ([n_in, m] -> [n_out, m]), 1 its columns."""
-    idx, w, group, rounded = _plan(key)
+    idx, w, group, rounded = _plan(key, x.device)
     xt = x if axis == 0 else x.T
     n_out = w.shape[0]
     p = xt.double().index_select(0, idx).reshape(n_out, TAPS, -1) * w
@@ -127,26 +136,41 @@ def resize_taps(x, key, axis: int):
     return out if axis == 0 else out.T.contiguous()
 
 
-def resize_linear(img: torch.Tensor, out_shape: Tuple[int, int]):
-    """jax.image.resize(img, out_shape, 'linear') for a 2-D image."""
+ORDERS = ("auto", "xla")
+
+
+def resize_linear(img: torch.Tensor, out_shape: Tuple[int, int],
+                  order: str = "auto"):
+    """jax.image.resize(img, out_shape, 'linear') for a 2-D image.
+    order "auto": XLA:CPU's tap order on the CPU where xla_resize.npz has
+    a plan, else the two matrix products (every tracking path); "xla":
+    XLA:CPU's order on any device, a ValueError where there is no plan."""
+    if order not in ORDERS:
+        raise ValueError(f"resize order {order!r} is not one of {ORDERS}")
     h, w = img.shape
     oh, ow = out_shape
     rows, cols = ("rows", h, oh, w), ("cols", w, ow, oh)
-    if img.device.type == "cpu" and rows in _plans() and cols in _plans():
+    planned = rows in _plans() and cols in _plans()
+    if order == "xla" and not planned:
+        raise ValueError(
+            f"xla_resize.npz has no plan for {h}x{w} -> {oh}x{ow}: XLA:CPU's "
+            f"order is recorded only for the sizes the file holds")
+    if planned and (order == "xla" or img.device.type == "cpu"):
         return resize_taps(resize_taps(img, rows, 0), cols, 1)
     wy = torch.from_numpy(resize_weights(h, oh)).to(img.device)
     wx = torch.from_numpy(resize_weights(w, ow)).to(img.device)
     return wy.T @ img @ wx
 
 
-def build_pyramid(img, n_levels: int, scale: float):
-    """img [H, W] float32 in [0, 255] -> list of [Hl, Wl] tensors."""
+def build_pyramid(img, n_levels: int, scale: float, order: str = "auto"):
+    """img [H, W] float32 in [0, 255] -> list of [Hl, Wl] tensors; order
+    as resize_linear's."""
     h, w = img.shape
     shapes = level_shapes(h, w, n_levels, scale)
     out = [img]
     cur = img
     for l in range(1, n_levels):
-        cur = resize_linear(cur, shapes[l])
+        cur = resize_linear(cur, shapes[l], order)
         out.append(cur)
     return out
 

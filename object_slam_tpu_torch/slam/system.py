@@ -286,6 +286,11 @@ class SlamSystem:
         # took the staged objects-on branch (a tensor on the device), else
         # None; cleared at every frame's start
         self._last_presem_Tcw = None
+        # the last tracked frame's stage results for the diagnostics
+        # (scripts/diag_retention_torch.py): {"tr_motion", "tr_local",
+        # "T_pred", "frame"} of device tensors, the fused path without
+        # T_pred; None until a frame is tracked and after reset()
+        self.debug_last = None
         # the RANSAC sampler's stream (the reference's PRNGKey(0))
         self.rng = torch.Generator(device=self.device)
         self.rng.manual_seed(0)
@@ -677,7 +682,7 @@ class SlamSystem:
                 # VO survival: the frozen map has no local coverage, so the
                 # temporal-point pose is the result (Tracking.cc:445-450
                 # skips TrackLocalMap when mbOnlyTracking && mbVO)
-                return self._vo_result(frame, tr, tr_ni, last)
+                return self._vo_result(frame, tr, tr_ni, last, T_pred)
             with self.profiler.span("track.local_map"):
                 if self.objects is not None and bool(
                         torch.any(frame.obj3d >= 0)):
@@ -701,11 +706,13 @@ class SlamSystem:
                     tr2_kf, map_kf, _ = self._local(frame, tr_kf, last.Tcw)
                     n_kf = int(tr2_kf.n_inliers)
                     if n_kf > n_inl:
-                        tr2, self.map, n_inl = tr2_kf, map_kf, n_kf
+                        tr, tr2, self.map, n_inl = tr_kf, tr2_kf, map_kf, n_kf
                         ok = n_inl >= 30 or (n_inl >= 10
                                              and self.frame_id < 5)
             self._last_n_inliers = n_inl
             self.state = OK if ok else LOST
+            self.debug_last = {"tr_motion": tr, "tr_local": tr2,
+                               "T_pred": T_pred, "frame": frame}
             frame = frame._replace(Tcw=tr2.Tcw, kp_pt=tr2.kp_pt,
                                    pose_ok=torch.tensor(ok,
                                                         device=self.device))
@@ -744,12 +751,14 @@ class SlamSystem:
         self.frame_id += 1
         return frame
 
-    def _vo_result(self, frame, tr, n_inl, last):
+    def _vo_result(self, frame, tr, n_inl, last, T_pred):
         """Localization mode's VO pose as the frame's result: tracked with
         >= 20 inliers, no local map, no keyframe."""
         ok = n_inl >= 20
         self._last_n_inliers = n_inl
         self.state = OK if ok else LOST
+        self.debug_last = {"tr_motion": tr, "tr_local": tr,
+                           "T_pred": T_pred, "frame": frame}
         frame = frame._replace(Tcw=tr.Tcw, kp_pt=tr.kp_pt,
                                pose_ok=torch.tensor(ok, device=self.device))
         if ok:
@@ -873,6 +882,8 @@ class SlamSystem:
                 obj_hooks=self._obj_hooks)
         frame = frame._replace(Tcw=tr2.Tcw, kp_pt=tr2.kp_pt, pose_ok=okd,
                                obj3d=obj3d)
+        self.debug_last = {"tr_motion": tr2, "tr_local": tr2,
+                           "frame": frame}
         # velocity advances provisionally as a device output; a LOST or
         # relocalized outcome resets it during resolve
         self.velocity = vel
@@ -1061,6 +1072,7 @@ class SlamSystem:
         self.trajectory = []
         self._mono_ref = None
         self._fused_pending = None
+        self.debug_last = None
 
     def get_tracking_state(self) -> int:
         """NOT_INITIALIZED=0 / OK=1 / LOST=2 (Tracking.h:99-105), after the

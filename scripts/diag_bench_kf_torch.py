@@ -43,8 +43,8 @@ def main():
 
     if args.pyramid == "xla":
         own = pyr.resize_linear
-        pyr.resize_linear = lambda img, shape: own(img.cpu(), shape).to(
-            img.device)
+        pyr.resize_linear = lambda img, shape, order="auto": own(
+            img, shape, "xla")
     decisions = []
     need = SlamSystem._need_keyframe
 

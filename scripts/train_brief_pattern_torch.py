@@ -73,7 +73,8 @@ def harvest_patches(n_target=50000, device=None, levels_out=None):
     from object_slam_tpu_torch.ops.patch import extract_patches_levels
 
     cfg = SlamConfig.tum_rgbd()
-    ex = OrbExtractor(cfg, device=device)
+    # the reference's pyramid order on any device (no tracking follows)
+    ex = OrbExtractor(cfg, device=device, pyramid_order="xla")
     dev = ex.device
     o = cfg.orb
     patches, total = [], 0
@@ -91,7 +92,8 @@ def harvest_patches(n_target=50000, device=None, levels_out=None):
             # blurred windows of every level in one call (level by level,
             # each level's keypoints in slab order), then rotated to
             # canonical
-            levels = pyr_mod.build_pyramid(img, o.n_levels, o.scale_factor)
+            levels = pyr_mod.build_pyramid(img, o.n_levels, o.scale_factor,
+                                           "xla")
             sel = np.concatenate([np.nonzero(valid & (lvl == l))[0]
                                   for l in range(o.n_levels)])
             if sel.size == 0:

@@ -39,7 +39,8 @@ def harvest(n_scenes=10, n_poses=8, device=None, log=print):
     from object_slam_tpu_torch.features.extractor import OrbExtractor
 
     cfg = SlamConfig.tum_rgbd()
-    ex = OrbExtractor(cfg, device=device)
+    # the reference's pyramid order on any device (no tracking follows)
+    ex = OrbExtractor(cfg, device=device, pyramid_order="xla")
     descs = []
     for seed in range(n_scenes):
         scene = SyntheticScene.make(cfg, seed=seed, n_objects=2,

@@ -113,3 +113,52 @@ def test_taps_sum_each_group_in_order(rounded, monkeypatch):
                                           0).numpy(), want)
     assert np.array_equal(pyr.resize_taps(torch.from_numpy(x.T.copy()),
                                           key, 1).numpy(), want.T)
+
+
+def test_the_reference_order_without_a_plan_raises():
+    """order="xla" (the offline harvests' choice) never falls back to the
+    products: at a size xla_resize.npz has no plan for (KITTI's first
+    level) it raises, and an unknown order raises too."""
+    x = torch.zeros((376, 1241))
+    with pytest.raises(ValueError, match="no plan"):
+        pyr.resize_linear(x, (313, 1034), "xla")
+    with pytest.raises(ValueError, match="no plan"):
+        pyr.build_pyramid(x, 8, 1.2, order="xla")
+    with pytest.raises(ValueError, match="not one of"):
+        pyr.resize_linear(x, (313, 1034), "products")
+
+
+def test_the_reference_order_is_the_cpu_pyramid_and_the_harvests_take_it():
+    """At TUM VGA order="xla" gives the CPU's levels bit for bit (the plan
+    tensors built for the image's device), and both harvests' extractors
+    ask for it; a tracking extractor keeps "auto"."""
+    import importlib
+    import sys
+    from object_slam_tpu_torch.features.extractor import OrbExtractor
+    rng = np.random.RandomState(2)
+    img = torch.from_numpy(rng.uniform(0, 255, (480, 640)).astype(
+        np.float32))
+    auto = pyr.build_pyramid(img, 8, 1.2)
+    xla = pyr.build_pyramid(img, 8, 1.2, order="xla")
+    assert all(torch.equal(a, b) for a, b in zip(auto, xla))
+    assert OrbExtractor(SlamConfig.tum_rgbd(),
+                        device="cpu").pyramid_order == "auto"
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "..", "scripts"))
+    made = []
+    real = OrbExtractor.__init__
+
+    def spy(self, *a, **kw):
+        real(self, *a, **kw)
+        made.append(self.pyramid_order)
+        raise StopIteration
+    for name, fn in (("train_vocab_torch", "harvest"),
+                     ("train_brief_pattern_torch", "harvest_patches")):
+        mod = importlib.import_module(name)
+        OrbExtractor.__init__ = spy
+        try:
+            with pytest.raises(StopIteration):
+                getattr(mod, fn)(device="cpu")
+        finally:
+            OrbExtractor.__init__ = real
+    assert made == ["xla", "xla"]

@@ -26,3 +26,15 @@ def integer_corpus(n: int, seed: int = 0) -> np.ndarray:
     W[i, i // CELL + 1] = f
     out = np.einsum("yk,nkl,xl->nyx", W, knots.astype(np.int64), W)
     return out.astype(np.float64)
+
+
+def window_hashes(patches):
+    """A 16-bit hash of each [32, 32] float64 window's bits (integer
+    arithmetic: the same on every machine), [n] uint16: equal windows hash
+    equal, and two windows that differ collide with probability 2^-16."""
+    bits = np.ascontiguousarray(patches, np.float64).reshape(
+        patches.shape[0], -1).view(np.uint64)
+    mult = (np.arange(bits.shape[1], dtype=np.uint64) * np.uint64(2)
+            + np.uint64(0x9E3779B97F4A7C15))
+    h = (bits * mult[None, :]).sum(1, dtype=np.uint64)
+    return (h >> np.uint64(48)).astype(np.uint16)

@@ -1,8 +1,9 @@
 """Faults planted in the port, each of which a check must catch: in the
 sharded BA (tests/test_torch_parallel.py, chip_smoke.py; each a rank
 setup function for parallel/sharded_ba.py::spawn_sharded_global_ba,
-module level so that a spawned rank can import it), and in the accuracy
-studies (tests/test_torch_studies*.py, chip_smoke.py)."""
+module level so that a spawned rank can import it), in the accuracy
+studies (tests/test_torch_studies*.py, chip_smoke.py) and in the
+retention probes (tests/test_torch_probes*.py, chip_smoke.py)."""
 
 
 def skip_point_reduce(rank: int, world: int):
@@ -53,3 +54,60 @@ def skip_semantic_refinement():
         return res.Tcw, kp_pt, inlier, n_sem
     ObjectEngine.semopt_impl = unchanged
     return lambda: setattr(ObjectEngine, "semopt_impl", semopt_impl)
+
+
+def exchange_pose_gates():
+    """The pose optimization's chi2 gates exchanged (5.991 for stereo
+    edges, 7.815 for mono), in pose_optimize's defaults and in every LM
+    step: the pose-solver probes' fault. Returns the function that undoes
+    the patch."""
+    from object_slam_tpu_torch.solvers import pose_opt
+    optimize, step = pose_opt.pose_optimize, pose_opt._lm_step
+
+    def swapped(K, Tcw0, obs, rounds=4, iters_per_round=10,
+                chi2_mono=5.991, chi2_stereo=7.815, damping=1e-3):
+        return optimize(K, Tcw0, obs, rounds, iters_per_round,
+                        chi2_stereo, chi2_mono, damping)
+
+    def step_swapped(K, Tcw, lam, obs, active, chi2_mono, chi2_stereo):
+        return step(K, Tcw, lam, obs, active, chi2_stereo, chi2_mono)
+    pose_opt.pose_optimize, pose_opt._lm_step = swapped, step_swapped
+
+    def undo():
+        pose_opt.pose_optimize, pose_opt._lm_step = optimize, step
+    return undo
+
+
+def motion_snapshot_is_local(sys_):
+    """SlamSystem.debug_last["tr_motion"] handed the local-map result (an
+    on_system hook of the retention probe): the TUM retention probes'
+    fault, visible wherever the two results differ (the staged and
+    localization paths)."""
+    staged = sys_._track_staged
+
+    def wrapped(frame):
+        out = staged(frame)
+        dbg = sys_.debug_last
+        if dbg is not None:
+            sys_.debug_last = dict(dbg, tr_motion=dbg["tr_local"])
+        return out
+    sys_._track_staged = wrapped
+    return sys_
+
+
+def symmetric_motion_level_window():
+    """The motion search's level window made +-1 under forward motion too
+    (slam/tracking.py::_motion_level_bounds; the reference searches
+    levels >= last - 1 one-sidedly going forward): the KITTI retention
+    probes' fault. Returns the function that undoes the patch."""
+    import torch
+    from object_slam_tpu_torch.slam import tracking
+    bounds = tracking._motion_level_bounds
+
+    def symmetric(K, T_pred, T_last, last_level, n_levels):
+        if T_last is None:
+            return None, None
+        return ((last_level - 1).to(torch.int32),
+                (last_level + 1).to(torch.int32))
+    tracking._motion_level_bounds = symmetric
+    return lambda: setattr(tracking, "_motion_level_bounds", bounds)

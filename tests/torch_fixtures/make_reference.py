@@ -74,7 +74,17 @@ inputs and outputs are recorded here once and committed:
   and on make_synth_tum.py's directory at tum_rgbd (24 frames);
 * ``object_slam_tpu_torch/features/xla_resize.npz`` (``xla_resize``): how
   XLA:CPU computes jax.image.resize for the TUM-VGA pyramid (its weights
-  and each product's summation order), which the port's pyramid executes.
+  and each product's summation order), which the port's pyramid executes;
+* ``harvest_cpu`` (``harvest_cpu:brief`` for the second half): the port's
+  two harvests on the CPU against the reference's, into vocab_train.npz
+  (the rows that differ) and brief.npz (each window's hash);
+* ``probes.npz`` and ``probes_vga.npz`` (``probes[:<part>]``, parts under
+  build/probes/, then ``probes:merge``): the retention probes of scripts/
+  (diag_poseopt, diag_retention with two dumped frames and the reference's
+  replays of them, the four KITTI probes) through their loops verbatim at
+  full precision, each with pinned one-ulp noise runs (level_noise and
+  pinned_noise): at small_cfg and stereo_cfg's street (10 frames), and at
+  TUM VGA (30 frames) and the 24-frame KITTI street (12 frames).
 
 Run from the repository root (the parts named; with no argument, the
 slices' parts listed in main()):
@@ -87,7 +97,7 @@ slices' parts listed in main()):
         [kitti_pass_noise]
         [loop_small_noise[:noise<k>|:merge]] [experiments]
         [experiments_tiny] [xla_resize] [vocab] [vocab_counts] [brief]
-        [studies[:<part>]]
+        [harvest_cpu[:brief]] [studies[:<part>]] [probes[:<part>]]
 
 slice1, objects and tum_vga use ``pipelined_readback=False``. The rendered
 inputs' checksums are stored so that the tests can prove they re-render
@@ -2845,6 +2855,38 @@ def record_brief():
           flush=True)
 
 
+def record_harvest_cpu(which=("vocab", "brief")):
+    """The port's two harvests on the CPU (scripts/train_vocab_torch.py's
+    and train_brief_pattern_torch.py's, the reference's pyramid order)
+    against the reference's recorded ones: the indices of the descriptor
+    rows that differ (``cpu_port.diff_rows`` in vocab_train.npz); and each
+    BRIEF window's hash (window_hashes; ``cpu_port.window_hash`` in
+    brief.npz). The card's vocabulary harvest is held to the rows, its
+    BRIEF windows counted against the hashes."""
+    sys.path.insert(0, os.path.join(HERE, "..", "..", "scripts"))
+    import train_brief_pattern_torch as tbt
+    import train_vocab_torch as tvt
+    from brief_cases import window_hashes
+    if "vocab" in which:
+        vocab = dict(np.load(OUT_VOCAB))
+        descs = tvt.harvest(device="cpu")
+        assert descs.shape == vocab["full.desc"].shape
+        rows = np.flatnonzero(np.any(descs != vocab["full.desc"], axis=1))
+        vocab["cpu_port.diff_rows"] = rows.astype(np.int64)
+        np.savez_compressed(OUT_VOCAB, **vocab)
+        print(f"vocabulary harvest: the CPU port parts from the reference "
+              f"in rows {rows.tolist()}; wrote {OUT_VOCAB}", flush=True)
+    if "brief" in which:
+        brief = dict(np.load(OUT_BRIEF))
+        hashes = window_hashes(tbt.harvest_patches(device="cpu").numpy())
+        assert hashes.shape == brief["full.sums"].shape
+        brief["cpu_port.window_hash"] = hashes
+        np.savez_compressed(OUT_BRIEF, **brief)
+        print(f"BRIEF harvest: {hashes.size} window hashes; wrote "
+              f"{OUT_BRIEF} ({os.path.getsize(OUT_BRIEF) / 1e3:.1f} kB)",
+              flush=True)
+
+
 OUT_XLA_RESIZE = os.path.join(HERE, "..", "..", "object_slam_tpu_torch",
                               "features", "xla_resize.npz")
 # the image sizes whose pyramids the port computes as XLA:CPU does
@@ -3753,6 +3795,938 @@ STUDY_PARTS = ([f"{k}:{n}" for k in ("var_small", "var_vga")
                + ["loop_probe", "sem_small", "sem_vga", "merge"])
 
 
+# ---------------------------------------------------------------------------
+# the tracking-retention probes of scripts/ (diag_poseopt.py,
+# diag_retention.py with its dumps, diag_replay.py, diag_gnsteps.py;
+# diag_kitti_retention.py, diag_kitti.py, diag_local_recovery.py,
+# diag_motion_chain.py): their loops as the scripts run them, every number
+# kept at full precision (the scripts print them rounded)
+# ---------------------------------------------------------------------------
+
+OUT_PROBES = os.path.join(HERE, "probes.npz")
+OUT_PROBES_VGA = os.path.join(HERE, "probes_vga.npz")
+PROBES_DIR = os.path.join(HERE, "..", "..", "build", "probes")
+# the CPU tests' sizes: small_cfg's TUM orbit and stereo_cfg's street
+# canyon (a PROBE_KITTI_SMALL-frame drive); chip_smoke.py's: tum_rgbd()'s
+# 30-frame orbit (diag_retention.py's default) and the first
+# PROBE_KITTI_VGA frames of the 24-frame KITTI drive its second process
+# renders
+PROBE_RET_SMALL, PROBE_RET_VGA = 12, 30
+PROBE_LOC_SMALL, PROBE_LOC_VGA = 8, 12
+PROBE_KITTI_SMALL, PROBE_KITTI_VGA, PROBE_KITTI_DRIVE = 10, 12, 24
+PROBE_NOISE = {"small": 4, "vga": 6}
+PROBE_LOC_NOISE = 3
+PROBE_POSE_NOISE = 8
+PROBE_KITTI_KINDS = ("kret", "kitti", "lrec", "mchain")
+
+
+def probe_path(part):
+    os.makedirs(PROBES_DIR, exist_ok=True)
+    return os.path.join(PROBES_DIR, part.replace(":", "_") + ".npz")
+
+
+def level_noise(seed):
+    """Every pyramid level past the first times (1 + u), u uniform in
+    +-6e-8 (at most one float32 ulp; a fixed field per level, drawn from
+    ``seed``): the reference's frame build under another rounding of its
+    resize, as the card's matrix products round it. Patches the module
+    function before any extractor traces it."""
+    import object_slam_tpu.features.pyramid as jpyr
+    orig = jpyr.build_pyramid
+
+    def noisy(img, n_levels, scale):
+        levels = orig(img, n_levels, scale)
+        out = [levels[0]]
+        for l, x in enumerate(levels[1:], 1):
+            u = np.random.RandomState(seed * 64 + l).uniform(
+                -6e-8, 6e-8, x.shape).astype(np.float32)
+            out.append(x * (np.float32(1.0) + jnp.asarray(u)))
+        return out
+    jpyr.build_pyramid = noisy
+
+
+def probe_tum_cfg(size):
+    return small_cfg() if size == "small" else SlamConfig.tum_rgbd()
+
+
+def pose_probe_rows(uv_noise_seed=None):
+    """diag_poseopt.py's 18 rows (its scene, its RandomState(0) stream),
+    at full precision: (n_valid, [18, 4] dt_mm, dr_deg, err_mm, n_inl).
+    uv_noise_seed: every pixel coordinate moved one float32 ulp up, down
+    or not (RandomState(seed)), after the scene's draws."""
+    from object_slam_tpu.solvers.pose_opt import PoseObs, pose_optimize
+    cfg = SlamConfig.tum_rgbd()
+    K = Intrinsics.from_config(cfg.camera)
+    rng = np.random.RandomState(0)
+    N = 500
+    pw = np.stack([rng.uniform(-2, 2, N), rng.uniform(-1.5, 1.5, N),
+                   rng.uniform(3.5, 4.5, N)], -1).astype(np.float32)
+    T_gt = np.eye(4, dtype=np.float32)
+    pc = pw
+    u = K.fx * pc[:, 0] / pc[:, 2] + K.cx
+    v = K.fy * pc[:, 1] / pc[:, 2] + K.cy
+    ur = u - K.bf / pc[:, 2]
+    uv = np.stack([u, v], -1)
+    levels = np.minimum((rng.geometric(0.45, N) - 1), 7)
+    sf = 1.2 ** levels
+    uv = uv + rng.randn(N, 2) * 0.3 * sf[:, None]
+    inv_sigma2 = (1.0 / (sf * sf)).astype(np.float32)
+    inb = (u >= 0) & (u < K.width) & (v >= 0) & (v < K.height)
+    uv32 = np.asarray(jnp.asarray(uv))
+    if uv_noise_seed is not None:
+        step = np.random.RandomState(uv_noise_seed).randint(-1, 2, uv.shape)
+        uv32 = np.where(step > 0, np.nextafter(uv32, np.float32(np.inf)),
+                        np.where(step < 0, np.nextafter(
+                            uv32, np.float32(-np.inf)), uv32))
+    obs = PoseObs(uv=jnp.asarray(uv32), ur=jnp.asarray(ur),
+                  pw=jnp.asarray(pw), inv_sigma2=jnp.asarray(inv_sigma2),
+                  valid=jnp.asarray(inb))
+    popt = jax.jit(lambda T0: pose_optimize(K, T0, obs))
+    rows = []
+    for dt in [0.005, 0.01, 0.03, 0.1, 0.3, 1.0]:
+        for dr_deg in [0.0, 0.5, 2.0]:
+            T0 = np.eye(4, dtype=np.float32)
+            d = rng.randn(3)
+            T0[:3, 3] = dt * d / np.linalg.norm(d)
+            th = np.deg2rad(dr_deg)
+            c, s = np.cos(th), np.sin(th)
+            T0[:3, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]],
+                                  np.float32)
+            Tcw, inl, n_inl = popt(jnp.asarray(T0))
+            err = np.linalg.norm(np.asarray(Tcw)[:3, 3] - T_gt[:3, 3]) * 1000
+            rows.append([dt * 1000, dr_deg, err, int(n_inl)])
+    return int(inb.sum()), np.asarray(rows, np.float64)
+
+
+def record_probe_pose():
+    n_valid, rows = pose_probe_rows()
+    out = {"pose.n_valid": np.int64(n_valid), "pose.rows": rows}
+    for k in range(PROBE_POSE_NOISE):
+        out[f"pose.noise.{k}.rows"] = pose_probe_rows(k)[1]
+    np.savez_compressed(probe_path("pose"), **out)
+
+
+def retention_dump(frame, dbg, m, T_gt, T_pred):
+    """diag_retention.py's OSLAM_DUMP arrays for one frame (T_pred: the
+    staged path's, else the prediction the fused program made)."""
+    return dict(uv=np.asarray(frame.uv), ur=np.asarray(frame.ur),
+                level=np.asarray(frame.level),
+                valid=np.asarray(frame.valid),
+                depth=np.asarray(frame.depth),
+                kp_pt_motion=np.asarray(dbg["tr_motion"].kp_pt_all),
+                kp_pt_local=np.asarray(dbg["tr_local"].kp_pt_all),
+                T_pred=np.asarray(T_pred),
+                Tcw_motion=np.asarray(dbg["tr_motion"].Tcw),
+                Tcw_local=np.asarray(dbg["tr_local"].Tcw),
+                pt_xyz=np.asarray(m.pt_xyz), pt_valid=np.asarray(m.pt_valid),
+                T_gt=T_gt)
+
+
+def jax_retention(cfg, n_frames, loc_only=False, noise=None, dump_all=False):
+    """diag_retention.py's loop (orbit, room scene seed 3, objects off)
+    on the reference at full precision: (per-frame records, summary,
+    dumps {frame: arrays}, keyframe frames). noise (seed, pinned
+    keyframe frames): level_noise and pinned_noise. A frame is dumped
+    where the script dumps (error past 20 mm), and every frame with
+    dump_all."""
+    from object_slam_tpu.datasets.synthetic import orbit_poses as jorbit
+    if noise is not None:
+        level_noise(noise[0])
+    scene = SyntheticScene.make(cfg, seed=3, n_objects=2, plane_z=4.0,
+                                room=True)
+    poses = jorbit(n_frames, radius=0.4, step=0.03)
+    Recorded, _ = recording_systems(noise=noise)
+    sys_ = Recorded(cfg, enable_objects=False)
+    recs, errs, dumps = [], [], {}
+    for i, T in enumerate(poses):
+        gray, depth, rgb, sem = scene.render_rgbd(T)
+        if loc_only and sys_.state == 1:
+            sys_.enable_mapping = False
+        T_fused = (np.asarray(sys_.velocity) @ np.asarray(
+            sys_.last_frame.Tcw) if sys_.last_frame is not None else None)
+        frame = sys_.track_rgbd(gray, depth, rgb, timestamp=i / 30.0)
+        Tcw = np.asarray(frame.Tcw)
+        err = np.linalg.norm(Tcw[:3, 3] - T[:3, 3])
+        dR = Tcw[:3, :3] @ T[:3, :3].T
+        rot_deg = np.degrees(np.arccos(
+            np.clip((np.trace(dR) - 1) / 2, -1, 1)))
+        C_est = -Tcw[:3, :3].T @ Tcw[:3, 3]
+        C_gt = -T[:3, :3].T @ T[:3, 3]
+        dC = T[:3, :3] @ (C_est - C_gt)
+        errs.append(err)
+        rec = sys_.trajectory[-1]
+        # the script reads the map before its printed line's n_keyframes
+        # folds in the lagged readback (which may insert a keyframe)
+        r = {"f": i, "tracked": int(rec.tracked), "err_mm": err * 1000,
+             "rot_deg": float(rot_deg), "dC_mm": (dC * 1000).tolist(),
+             "motion": None, "local": None, "map3d": None, "far": 0,
+             "dumped": False}
+        dbg = getattr(sys_, "debug_last", None)
+        if dbg is not None and i > 0:
+            for tag in ("tr_motion", "tr_local"):
+                tr = dbg[tag]
+                kp_pt = np.asarray(tr.kp_pt)
+                sel = kp_pt >= 0
+                if sel.sum() == 0:
+                    r[tag[3:]] = {"n": 0, "wrong": None, "err_mm": None}
+                    continue
+                pw = np.asarray(sys_.map.pt_xyz)[kp_pt[sel]]
+                pc = (T[:3, :3] @ pw.T).T + T[:3, 3]
+                z = np.maximum(pc[:, 2], 1e-6)
+                u = cfg.camera.fx * pc[:, 0] / z + cfg.camera.cx
+                v = cfg.camera.fy * pc[:, 1] / z + cfg.camera.cy
+                kp_uv = np.asarray(frame.uv)[sel]
+                d = np.hypot(u - kp_uv[:, 0], v - kp_uv[:, 1])
+                terr = np.linalg.norm(
+                    np.asarray(tr.Tcw)[:3, 3] - T[:3, 3]) * 1000
+                r[tag[3:]] = {"n": int(sel.sum()),
+                              "wrong": float((d > 3).mean() * 100),
+                              "err_mm": float(terr)}
+            kp_pt = np.asarray(dbg["tr_local"].kp_pt)
+            fd = np.asarray(frame.depth)
+            sel = (kp_pt >= 0) & (fd > 0)
+            if sel.sum() > 0:
+                uvn = np.asarray(frame.uv)[sel]
+                z = fd[sel]
+                pc_gt = np.stack(
+                    [(uvn[:, 0] - cfg.camera.cx) / cfg.camera.fx * z,
+                     (uvn[:, 1] - cfg.camera.cy) / cfg.camera.fy * z, z], -1)
+                Twc = np.linalg.inv(T)
+                pw_gt = pc_gt @ Twc[:3, :3].T + Twc[:3, 3]
+                e3d = np.linalg.norm(
+                    np.asarray(sys_.map.pt_xyz)[kp_pt[sel]] - pw_gt, axis=1)
+                r["map3d"] = {"med_mm": float(np.median(e3d) * 1000),
+                              "p90_mm": float(np.percentile(e3d, 90) * 1000)}
+                pv = np.asarray(sys_.map.pt_valid)
+                px = np.asarray(sys_.map.pt_xyz)
+                r["far"] = int((pv & (np.linalg.norm(px, axis=1)
+                                      > 20.0)).sum())
+            if err > 0.02 or dump_all:
+                T_pred = dbg["T_pred"] if "T_pred" in dbg else T_fused
+                dumps[i] = retention_dump(frame, dbg, sys_.map, T, T_pred)
+                r["dumped"] = bool(err > 0.02)
+            sys_.debug_last = None
+        r["state"] = int(sys_.state)
+        r["kfs"] = int(sys_.n_keyframes)
+        r["pts"] = int(sys_.n_points)
+        recs.append(r)
+        print(f"retention f={i} err={err * 1000:.1f}mm kfs={r['kfs']} "
+              f"pts={r['pts']}", flush=True)
+    errs = np.asarray(errs)
+    n_ok = sum(1 for rr in sys_.trajectory if rr.tracked)
+    summary = {"tracked": n_ok, "frames": len(poses),
+               "ate_raw_mm": float(np.sqrt(np.mean(errs ** 2)) * 1000),
+               "max_mm": float(errs.max() * 1000)}
+    return recs, summary, dumps, sorted(set(sys_.rec_inserts))
+
+
+def probe_kitti_dir(size):
+    """The KITTI directory of the probes' drive, written from the
+    reference's renders by datasets/kitti.py::write_sequence (the files
+    chip_smoke.py writes from the port's renders): the small street of
+    stereo_cfg (PROBE_KITTI_SMALL frames) or the KITTI-width drive of
+    PROBE_KITTI_DRIVE frames. Returns (cfg, directory)."""
+    from object_slam_tpu_torch.datasets import kitti as tkitti
+    root = os.path.join(PROBES_DIR, f"kitti_{size}")
+    kind, n = (("stereo", PROBE_KITTI_SMALL) if size == "small"
+               else ("kitti", PROBE_KITTI_DRIVE))
+    cfg = SlamConfig.kitti_stereo() if size == "vga" else stereo_cfg()
+    if not os.path.exists(os.path.join(root, "gt.txt")):
+        _, _, poses, frames = render_street(kind, n)
+        frames = [(gl, gr, tuple(np.asarray(a) for a in sa))
+                  for gl, gr, sa in frames]
+        tkitti.write_sequence(root, poses, frames)
+    return cfg, root
+
+
+def _pil_u8(path):
+    from PIL import Image
+    return np.asarray(Image.open(path), np.uint8)
+
+
+def jax_kitti_retention(cfg, seq, n_frames, start=0, radius_th=15.0,
+                        level_window=1, forward_onesided=False):
+    """diag_kitti_retention.py's loop (FrameBuilder.build_stereo, GT
+    transport) at full precision; the Hamming in row chunks (the same
+    counts as the script's [N, N, 256] cube): (per-frame, totals, level
+    jumps)."""
+    from object_slam_tpu.datasets import kitti
+    from object_slam_tpu.slam.frame import FrameBuilder
+    fb = FrameBuilder(cfg)
+    frames = kitti.load_sequence(seq)
+    gt = kitti.load_groundtruth(os.path.join(seq, "gt.txt"))
+    K = fb.K
+    sf = np.asarray(fb.scale_factors)
+    close_z = cfg.camera.th_depth * cfg.camera.baseline
+
+    def build(i):
+        fr = frames[i]
+        sa = kitti.load_semantics(os.path.join(seq, "semantic"), fr.index,
+                                  cfg)
+        return fb.build_stereo(_pil_u8(fr.left_path), _pil_u8(fr.right_path),
+                               None, sa, fr.timestamp)
+
+    tot = dict(n=0, detected=0, lvl_ok=0, desc_ok=0, retained=0,
+               det_in_img=0)
+    lvl_jumps, per = [], []
+    prev = build(start)
+    for i in range(start + 1, start + n_frames):
+        cur = build(i)
+        p_uv = np.asarray(prev.uv)
+        p_lvl = np.asarray(prev.level)
+        p_desc = np.asarray(prev.desc)
+        p_d = np.asarray(prev.depth)
+        p_ok = np.asarray(prev.valid) & (p_d > 0) & (p_d < close_z)
+        Tw_prev, Tw_cur = gt[i - 1], gt[i]
+        Tcw_cur = np.linalg.inv(Tw_cur)
+        z = np.maximum(p_d, 1e-6)
+        pc = np.stack([(p_uv[:, 0] - K.cx) / K.fx * z,
+                       (p_uv[:, 1] - K.cy) / K.fy * z, z], -1)
+        pw = pc @ Tw_prev[:3, :3].T + Tw_prev[:3, 3]
+        pc2 = pw @ Tcw_cur[:3, :3].T + Tcw_cur[:3, 3]
+        z2 = pc2[:, 2]
+        u2 = K.fx * pc2[:, 0] / np.maximum(z2, 1e-6) + K.cx
+        v2 = K.fy * pc2[:, 1] / np.maximum(z2, 1e-6) + K.cy
+        in_img = ((z2 > 0.1) & (u2 >= 0) & (u2 < cfg.camera.width)
+                  & (v2 >= 0) & (v2 < cfg.camera.height))
+        rows = p_ok & in_img
+        c_uv = np.asarray(cur.uv)
+        c_lvl = np.asarray(cur.level)
+        c_desc = np.asarray(cur.desc)
+        c_ok = np.asarray(cur.valid)
+        radius = radius_th * sf[np.clip(p_lvl, 0, len(sf) - 1)]
+        du = np.abs(u2[:, None] - c_uv[None, :, 0])
+        dv = np.abs(v2[:, None] - c_uv[None, :, 1])
+        win = (du < radius[:, None]) & (dv < radius[:, None]) & c_ok[None, :]
+        if forward_onesided:
+            lvl_win = c_lvl[None, :] >= (p_lvl[:, None] - 1)
+        else:
+            lvl_win = (np.abs(c_lvl[None, :] - p_lvl[:, None])
+                       <= level_window)
+        pb = np.unpackbits(np.ascontiguousarray(p_desc).view(np.uint8),
+                           axis=-1)
+        cb = np.unpackbits(np.ascontiguousarray(c_desc).view(np.uint8),
+                           axis=-1)
+        ham = np.zeros(win.shape, np.int32)
+        for a in range(0, pb.shape[0], 128):
+            ham[a:a + 128] = (pb[a:a + 128, None, :]
+                              != cb[None, :, :]).sum(-1)
+        desc_win = ham <= 100
+        detected = win.any(1)
+        lvl_ok = (win & lvl_win).any(1)
+        desc_ok = (win & desc_win).any(1)
+        retained = (win & lvl_win & desc_win).any(1)
+        tot["n"] += int(rows.sum())
+        tot["det_in_img"] += int(rows.sum())
+        tot["detected"] += int((detected & rows).sum())
+        tot["lvl_ok"] += int((lvl_ok & rows).sum())
+        tot["desc_ok"] += int((desc_ok & rows).sum())
+        tot["retained"] += int((retained & rows).sum())
+        hit_rows = np.where(rows & detected)[0]
+        if hit_rows.size:
+            d2 = du[hit_rows] ** 2 + dv[hit_rows] ** 2
+            d2 = np.where(win[hit_rows], d2, np.inf)
+            nearest = d2.argmin(1)
+            lvl_jumps.extend((c_lvl[nearest] - p_lvl[hit_rows]).tolist())
+        per.append({"f": i, "close": int(rows.sum()),
+                    "det": int((detected & rows).sum()),
+                    "lvl": int((lvl_ok & rows).sum()),
+                    "desc": int((desc_ok & rows).sum()),
+                    "ret": int((retained & rows).sum())})
+        print(f"kitti_retention {per[-1]}", flush=True)
+        prev = cur
+    vals, cnts = np.unique(np.asarray(lvl_jumps, np.int64),
+                           return_counts=True)
+    return per, tot, {int(v): int(c) for v, c in zip(vals, cnts)}
+
+
+def jax_kitti(cfg, seq, n_frames, start=0, noise=None):
+    """diag_kitti.py's loop (objects on, async mapping, float images and
+    rgb) at full precision: (per-frame, keyframe frames)."""
+    from object_slam_tpu.datasets import kitti
+    from PIL import Image
+    if noise is not None:
+        level_noise(noise[0])
+    frames = kitti.load_sequence(seq)[start:start + n_frames]
+    gt = kitti.load_groundtruth(os.path.join(seq, "gt.txt"))
+    Recorded, _ = recording_systems(noise=noise)
+    sys_ = Recorded(cfg, enable_objects=True, async_mapping=True)
+    per = []
+    for i, fr in enumerate(frames):
+        gl = np.asarray(Image.open(fr.left_path), np.float32)
+        gr = np.asarray(Image.open(fr.right_path), np.float32)
+        rgb = np.stack([gl] * 3, -1)
+        sa = kitti.load_semantics(os.path.join(seq, "semantic"), fr.index,
+                                  cfg)
+        f = sys_.track_stereo(jnp.asarray(gl), jnp.asarray(gr),
+                              jnp.asarray(rgb), sa, timestamp=fr.timestamp)
+        Twc = np.linalg.inv(np.asarray(f.Tcw))
+        err = np.linalg.norm(Twc[:3, 3] - gt[start + i][:3, 3])
+        d = np.asarray(f.depth)
+        v = np.asarray(f.valid)
+        close = (d > 0) & (d < cfg.camera.th_depth * cfg.camera.baseline)
+        per.append({"f": start + i,
+                    "inl": int(getattr(sys_, "_last_n_inliers", -1)),
+                    "err_m": float(err), "kps": int(v.sum()),
+                    "depth": int((d > 0).sum()),
+                    "close": int((close & v).sum()),
+                    "det": int(np.asarray(f.obj.valid).sum()),
+                    "obj3d": np.asarray(f.obj3d)[:3].tolist(),
+                    "kfs": int(sys_.n_keyframes)})
+        print(f"kitti {per[-1]}", flush=True)
+    kfs = sorted(set(sys_.rec_inserts))
+    sys_.shutdown()
+    return per, kfs
+
+
+def jax_local_recovery(cfg, seq, n_frames, start=0, noise=None):
+    """diag_local_recovery.py's loop (SlamSystem(cfg) as the script makes
+    it, u8 images, rgb None) at full precision: (per-frame, totals,
+    keyframe frames)."""
+    from object_slam_tpu.datasets import kitti
+    if noise is not None:
+        level_noise(noise[0])
+    Recorded, _ = recording_systems(noise=noise)
+    sys_ = Recorded(cfg)
+    frames = kitti.load_sequence(seq)
+    close_z = cfg.camera.th_depth * cfg.camera.baseline
+    cam = cfg.camera
+    sf = np.asarray(sys_.scale_factors)
+    log_scale = float(sys_.log_scale)
+    n_levels = len(sf)
+    tot = {k: 0 for k in ["close_vis", "matched", "no_local", "frustum",
+                          "no_kp_radius", "level", "desc", "lost",
+                          "level_would_pass_w2", "radius_would_pass_2x"]}
+    per_frame = []
+    for i in range(start, start + n_frames):
+        fr = frames[i]
+        sa = kitti.load_semantics(os.path.join(seq, "semantic"), fr.index,
+                                  cfg)
+        sys_.track_stereo(_pil_u8(fr.left_path), _pil_u8(fr.right_path),
+                          None, sa, fr.timestamp)
+        if sys_.last_frame is None or i < start + 2:
+            continue
+        m = sys_.map
+        frame = sys_.last_frame
+        Tcw = np.asarray(frame.Tcw)
+        pt_valid = np.asarray(m.pt_valid)
+        pw = np.asarray(m.pt_xyz)
+        normal = np.asarray(m.pt_normal)
+        mind = np.asarray(m.pt_min_dist)
+        maxd = np.asarray(m.pt_max_dist)
+        desc = np.asarray(m.pt_desc)
+        P = pw.shape[0]
+        pc = pw @ Tcw[:3, :3].T + Tcw[:3, 3]
+        z = pc[:, 2]
+        close = pt_valid & (z > 0.1) & (z < close_z)
+        u = cam.fx * pc[:, 0] / np.maximum(z, 1e-6) + cam.cx
+        v = cam.fy * pc[:, 1] / np.maximum(z, 1e-6) + cam.cy
+        in_img = (u >= 0) & (u < cam.width) & (v >= 0) & (v < cam.height)
+        close_vis = close & in_img
+        n_close_vis = int(close_vis.sum())
+        if n_close_vis == 0:
+            continue
+        kp_pt = np.asarray(frame.kp_pt)
+        matched_set = np.zeros((P,), bool)
+        matched_set[np.clip(kp_pt, 0, P - 1)] |= (kp_pt >= 0)
+        matched = close_vis & matched_set
+        kf_kp_pt = np.asarray(m.kf_kp_pt)
+        kf_kp_valid = np.asarray(m.kf_kp_valid)
+        kf_valid = np.asarray(m.kf_valid)
+        obs_ok = (kf_kp_pt >= 0) & kf_kp_valid & kf_valid[:, None]
+        votes = (matched_set[np.clip(kf_kp_pt, 0, P - 1)] & obs_ok).sum(1)
+        order = np.argsort(-votes)[:16]
+        order = order[votes[order] > 0]
+        local_mask = np.zeros((P,), bool)
+        for kf in order:
+            sel = kf_kp_pt[kf]
+            okk = (sel >= 0) & kf_kp_valid[kf]
+            local_mask[np.clip(sel, 0, P - 1)] |= okk
+        local_mask &= pt_valid
+        cap = cfg.caps.local_search_pts
+        if local_mask.sum() > cap:
+            recent = np.asarray(m.pt_first_kf) >= int(m.n_kf) - 3
+            score = np.where(recent, 1e6, 0) + np.asarray(m.pt_n_obs)
+            score = np.where(local_mask, score, -1)
+            keep = np.argsort(-score)[:cap]
+            lm2 = np.zeros((P,), bool)
+            lm2[keep] = score[keep] >= 0
+            local_mask = lm2
+        cc = -Tcw[:3, :3].T @ Tcw[:3, 3]
+        po = pw - cc
+        dist = np.linalg.norm(po, axis=1)
+        vcos = (po * normal).sum(1) / np.maximum(dist, 1e-6)
+        frustum_ok = ((dist >= 0.8 * mind) & (dist <= 1.2 * maxd)
+                      & (vcos > 0.5))
+        kp_uv = np.asarray(frame.uv)
+        kp_lvl = np.asarray(frame.level)
+        kp_desc = np.asarray(frame.desc)
+        kp_free = np.asarray(frame.valid) & (kp_pt < 0)
+        lvl = np.clip(np.ceil(np.log(np.maximum(
+            maxd / np.maximum(dist, 1e-6), 1e-6)) / log_scale
+        ).astype(np.int32), 0, n_levels - 1)
+        r0 = np.where(vcos > 0.998, 2.5, 4.0)
+        radius = r0 * sf[lvl] * (7.0 / 7.0)
+        rows = np.where(close_vis & ~matched)[0]
+        cnt = dict(no_local=0, frustum=0, no_kp_radius=0, level=0,
+                   desc=0, lost=0, level_would_pass_w2=0,
+                   radius_would_pass_2x=0)
+        pb = np.unpackbits(np.ascontiguousarray(desc[rows]).view(np.uint8),
+                           axis=-1) if len(rows) else None
+        cb = np.unpackbits(np.ascontiguousarray(kp_desc).view(np.uint8),
+                           axis=-1)
+        for k, p in enumerate(rows):
+            if not local_mask[p]:
+                cnt["no_local"] += 1
+                continue
+            if not frustum_ok[p]:
+                cnt["frustum"] += 1
+                continue
+            du = np.abs(u[p] - kp_uv[:, 0])
+            dv = np.abs(v[p] - kp_uv[:, 1])
+            win = (du < radius[p]) & (dv < radius[p]) & kp_free
+            if not win.any():
+                if ((du < 2 * radius[p]) & (dv < 2 * radius[p])
+                        & kp_free).any():
+                    cnt["radius_would_pass_2x"] += 1
+                cnt["no_kp_radius"] += 1
+                continue
+            lvl_ok = np.abs(kp_lvl - lvl[p]) <= 1
+            if not (win & lvl_ok).any():
+                if (win & (np.abs(kp_lvl - lvl[p]) <= 2)).any():
+                    cnt["level_would_pass_w2"] += 1
+                cnt["level"] += 1
+                continue
+            ham = (pb[k][None, :] != cb[win & lvl_ok]).sum(-1)
+            if ham.min() > 100:
+                cnt["desc"] += 1
+                continue
+            cnt["lost"] += 1
+        tot["close_vis"] += n_close_vis
+        tot["matched"] += int(matched.sum())
+        for k in cnt:
+            tot[k] += cnt[k]
+        per_frame.append(dict(f=i, close_vis=n_close_vis,
+                              matched=int(matched.sum()), **cnt))
+        print(f"local_recovery {per_frame[-1]}", flush=True)
+    kfs = sorted(set(sys_.rec_inserts))
+    return per_frame, tot, kfs
+
+
+def jax_motion_chain(cfg, seq, n_frames, start=0, noise=None):
+    """diag_motion_chain.py's loop (SlamSystem(cfg), u8 images, rgb None;
+    the motion search with and without last_angle on the real inputs) at
+    full precision: (per-frame, totals, keyframe frames)."""
+    from object_slam_tpu.datasets import kitti
+    from object_slam_tpu.slam import tracking as trk
+    if noise is not None:
+        level_noise(noise[0])
+    Recorded, _ = recording_systems(noise=noise)
+    sys_ = Recorded(cfg)
+    frames = kitti.load_sequence(seq)
+    gt = kitti.load_groundtruth(os.path.join(seq, "gt.txt"))
+    close_z = cfg.camera.th_depth * cfg.camera.baseline
+    sf = np.asarray(sys_.scale_factors)
+    K = sys_.K
+    motion_jit = jax.jit(lambda m, fr, lu, lp, ll, lv, tp, tl, la:
+                         trk.track_motion_model(
+                             K, m, fr, lu, lp, ll, lv, tp,
+                             sys_.scale_factors, sys_.inv_sigma2,
+                             radius_th=cfg.tracking.motion_model_radius,
+                             T_last=tl, last_angle=la))
+    motion_norot_jit = jax.jit(lambda m, fr, lu, lp, ll, lv, tp, tl:
+                               trk.track_motion_model(
+                                   K, m, fr, lu, lp, ll, lv, tp,
+                                   sys_.scale_factors, sys_.inv_sigma2,
+                                   radius_th=cfg.tracking.motion_model_radius,
+                                   T_last=tl, last_angle=None))
+    tot = {k: 0 for k in ["bound", "window", "ur_ok", "level", "desc",
+                          "matched", "matched_norot", "inlier",
+                          "inlier_norot", "killed_total",
+                          "killed_correct"]}
+    per = []
+    for i in range(start, start + n_frames):
+        fr = frames[i]
+        sa = kitti.load_semantics(os.path.join(seq, "semantic"), fr.index,
+                                  cfg)
+        last_snapshot = sys_.last_frame
+        last_Tcw = (np.asarray(last_snapshot.Tcw)
+                    if last_snapshot is not None else None)
+        vel = np.asarray(sys_.velocity) if sys_.velocity is not None \
+            else np.eye(4)
+        sys_.track_stereo(_pil_u8(fr.left_path), _pil_u8(fr.right_path),
+                          None, sa, fr.timestamp)
+        if last_snapshot is None or i < start + 2:
+            continue
+        m = sys_.map
+        last = last_snapshot
+        cur = sys_.last_frame
+        T_pred = vel @ last_Tcw
+        P = np.asarray(m.pt_xyz).shape[0]
+        l_uv = np.asarray(last.uv)
+        l_pt = np.asarray(last.kp_pt)
+        l_lvl = np.asarray(last.level)
+        l_d = np.asarray(last.depth)
+        l_valid = np.asarray(last.valid)
+        l_desc = np.asarray(last.desc)
+        pt_valid = np.asarray(m.pt_valid)
+        close = l_valid & (l_d > 0) & (l_d < close_z)
+        bound = close & (l_pt >= 0) & pt_valid[np.clip(l_pt, 0, P - 1)]
+        pw = np.asarray(m.pt_xyz)[np.clip(l_pt, 0, P - 1)]
+        pc = pw @ T_pred[:3, :3].T + T_pred[:3, 3]
+        z = pc[:, 2]
+        u = K.fx * pc[:, 0] / np.maximum(z, 1e-6) + K.cx
+        v = K.fy * pc[:, 1] / np.maximum(z, 1e-6) + K.cy
+        ur_pred = u - K.bf / np.maximum(z, 1e-6)
+        in_img = (z > 0) & (u >= 0) & (u < cfg.camera.width) & \
+            (v >= 0) & (v < cfg.camera.height)
+        rows = bound & in_img
+        c_uv = np.asarray(cur.uv)
+        c_lvl = np.asarray(cur.level)
+        c_desc = np.asarray(cur.desc)
+        c_ur = np.asarray(cur.ur)
+        c_ok = np.asarray(cur.valid)
+        radius = cfg.tracking.motion_model_radius * sf[
+            np.clip(l_lvl, 0, len(sf) - 1)]
+        du = np.abs(u[:, None] - c_uv[None, :, 0])
+        dv = np.abs(v[:, None] - c_uv[None, :, 1])
+        win = (du < radius[:, None]) & (dv < radius[:, None]) & c_ok[None, :]
+        ur_ok_m = (c_ur[None, :] < 0) | (
+            np.abs(ur_pred[:, None] - c_ur[None, :]) < radius[:, None])
+        lvl_win = c_lvl[None, :] >= (l_lvl[:, None] - 1)
+        pb = np.unpackbits(np.ascontiguousarray(l_desc).view(np.uint8),
+                           axis=-1)
+        cb = np.unpackbits(np.ascontiguousarray(c_desc).view(np.uint8),
+                           axis=-1)
+        desc_hit = np.zeros(win.shape, bool)
+        step = 256
+        for a in range(0, pb.shape[0], step):
+            ham = (pb[a:a + step, None, :] != cb[None, :, :]).sum(-1)
+            desc_hit[a:a + step] = ham <= 100
+        stage_w = (win).any(1)
+        stage_u = (win & ur_ok_m).any(1)
+        stage_l = (win & ur_ok_m & lvl_win).any(1)
+        stage_d = (win & ur_ok_m & lvl_win & desc_hit).any(1)
+        res = motion_jit(m, cur, last.uv, last.kp_pt, last.level,
+                         last.valid, jnp.asarray(T_pred),
+                         jnp.asarray(last_Tcw), last.angle)
+        res_norot = motion_norot_jit(m, cur, last.uv, last.kp_pt,
+                                     last.level, last.valid,
+                                     jnp.asarray(T_pred),
+                                     jnp.asarray(last_Tcw))
+        mt = np.asarray(res.kp_pt_all)
+        inl = np.asarray(res.kp_pt)
+        mt_nr = np.asarray(res_norot.kp_pt_all)
+        inl_nr = np.asarray(res_norot.kp_pt)
+        matched_set = np.zeros((P,), bool)
+        matched_set[np.clip(mt, 0, P - 1)] |= (mt >= 0)
+        matched_nr_set = np.zeros((P,), bool)
+        matched_nr_set[np.clip(mt_nr, 0, P - 1)] |= (mt_nr >= 0)
+        inlier_set = np.zeros((P,), bool)
+        inlier_set[np.clip(inl, 0, P - 1)] |= (inl >= 0)
+        inlier_nr_set = np.zeros((P,), bool)
+        inlier_nr_set[np.clip(inl_nr, 0, P - 1)] |= (inl_nr >= 0)
+        lptc = np.clip(l_pt, 0, P - 1)
+        killed_correct = killed_total = 0
+        gtTcw = np.linalg.inv(gt[i])
+        kp_of_pt = np.full((P,), -1, np.int64)
+        kp_of_pt[np.clip(mt_nr, 0, P - 1)] = np.where(
+            mt_nr >= 0, np.arange(len(mt_nr)), -1)
+        pw_all = np.asarray(m.pt_xyz)
+        for pslot in np.where(matched_nr_set & ~matched_set)[0]:
+            r_last = np.where((lptc == pslot) & rows)[0]
+            if len(r_last) == 0:
+                continue
+            j = kp_of_pt[pslot]
+            if j < 0:
+                continue
+            pcg = pw_all[pslot] @ gtTcw[:3, :3].T + gtTcw[:3, 3]
+            if pcg[2] <= 0:
+                continue
+            ug = K.fx * pcg[0] / pcg[2] + K.cx
+            vg = K.fy * pcg[1] / pcg[2] + K.cy
+            killed_total += 1
+            if (ug - c_uv[j, 0]) ** 2 + (vg - c_uv[j, 1]) ** 2 < 9.0:
+                killed_correct += 1
+        row_stats = dict(
+            f=i, bound=int(rows.sum()),
+            window=int((stage_w & rows).sum()),
+            ur_ok=int((stage_u & rows).sum()),
+            level=int((stage_l & rows).sum()),
+            desc=int((stage_d & rows).sum()),
+            matched=int((matched_set[lptc] & rows).sum()),
+            matched_norot=int((matched_nr_set[lptc] & rows).sum()),
+            inlier=int((inlier_set[lptc] & rows).sum()),
+            inlier_norot=int((inlier_nr_set[lptc] & rows).sum()),
+            killed_total=killed_total,
+            killed_correct=killed_correct)
+        for k in tot:
+            tot[k] += row_stats[k]
+        per.append(row_stats)
+        print(f"motion_chain {row_stats}", flush=True)
+    kfs = sorted(set(sys_.rec_inserts))
+    return per, tot, kfs
+
+
+def _probe_K(cfg):
+    cam = cfg.camera
+    sf = np.asarray([cfg.orb.scale_factor ** l
+                     for l in range(cfg.orb.n_levels)])
+    return Intrinsics.from_config(cam), (1.0 / (sf * sf)).astype(np.float32)
+
+
+def jax_replay(d, cfg):
+    """diag_replay.py on a dump at full precision (its camera: cfg's):
+    the six replays, the recorded errors, the two basins and the three
+    costs."""
+    from object_slam_tpu.solvers.pose_opt import PoseObs, pose_optimize
+    K, inv_sigma2_lvl = _probe_K(cfg)
+    T_gt = d["T_gt"]
+
+    def replay(kp_pt, T0):
+        matched = (kp_pt >= 0) & d["valid"]
+        P = d["pt_xyz"].shape[0]
+        ptc = np.clip(kp_pt, 0, P - 1)
+        obs = PoseObs(
+            uv=jnp.asarray(d["uv"]),
+            ur=jnp.asarray(np.where(matched, d["ur"], -1.0)),
+            pw=jnp.asarray(d["pt_xyz"][ptc]),
+            inv_sigma2=jnp.asarray(inv_sigma2_lvl[np.clip(d["level"], 0,
+                                                          7)]),
+            valid=jnp.asarray(matched))
+        Tcw, inl, n_inl = pose_optimize(K, jnp.asarray(T0), obs)
+        Tcw = np.asarray(Tcw)
+        pw = d["pt_xyz"][ptc[matched]]
+        pc = (T_gt[:3, :3] @ pw.T).T + T_gt[:3, 3]
+        z = np.maximum(pc[:, 2], 1e-6)
+        u = float(K.fx) * pc[:, 0] / z + float(K.cx)
+        v = float(K.fy) * pc[:, 1] / z + float(K.cy)
+        kp = d["uv"][matched]
+        dd = np.hypot(u - kp[:, 0], v - kp[:, 1])
+        lv = d["level"][matched]
+        return {"n": int(matched.sum()),
+                "wrong": float((dd > 3).mean() * 100),
+                "err0_mm": float(np.linalg.norm(T0[:3, 3] - T_gt[:3, 3])
+                                 * 1000),
+                "err_mm": float(np.linalg.norm(Tcw[:3, 3] - T_gt[:3, 3])
+                                * 1000),
+                "n_inl": int(n_inl),
+                "spread": [float(kp[:, 0].std()), float(kp[:, 1].std())],
+                "levels": [float(np.median(lv)),
+                           float(np.percentile(lv, 90))]}, Tcw
+
+    def cost(kp_pt, T):
+        matched = (kp_pt >= 0) & d["valid"]
+        P = d["pt_xyz"].shape[0]
+        ptc = np.clip(kp_pt, 0, P - 1)
+        pw = d["pt_xyz"][ptc]
+        pc = (T[:3, :3] @ pw.T).T + T[:3, 3]
+        z = np.maximum(pc[:, 2], 1e-6)
+        u = float(K.fx) * pc[:, 0] / z + float(K.cx)
+        v = float(K.fy) * pc[:, 1] / z + float(K.cy)
+        urp = u - float(K.bf) / z
+        ru = d["uv"][:, 0] - u
+        rv = d["uv"][:, 1] - v
+        rr = np.where(d["ur"] >= 0, d["ur"] - urp, 0.0)
+        isig = inv_sigma2_lvl[np.clip(d["level"], 0, 7)]
+        chi2 = (ru * ru + rv * rv + rr * rr) * isig
+        delta2 = np.where(d["ur"] >= 0, 7.815, 5.991)
+        rho = np.where(chi2 <= delta2, chi2,
+                       2 * np.sqrt(delta2 * np.maximum(chi2, 1e-12))
+                       - delta2)
+        rho = np.where(matched, rho, 0.0)
+        n = matched.sum()
+        return {"cost": float(rho.sum()), "mean": float(rho.sum() / n),
+                "median_chi2": float(np.median(chi2[matched])), "n": int(n)}
+
+    out = {}
+    for name, T0 in (("T_pred", d["T_pred"]), ("Tcw_local", d["Tcw_local"]),
+                     ("T_gt", T_gt.astype(np.float32))):
+        out[f"init_{name}"] = {
+            "motion": replay(d["kp_pt_motion"], T0)[0],
+            "local": replay(d["kp_pt_local"], T0)[0]}
+    out["recorded"] = {
+        "motion_err_mm": float(np.linalg.norm(
+            d["Tcw_motion"][:3, 3] - T_gt[:3, 3]) * 1000),
+        "local_err_mm": float(np.linalg.norm(
+            d["Tcw_local"][:3, 3] - T_gt[:3, 3]) * 1000),
+        "T_pred_err_mm": float(np.linalg.norm(
+            d["T_pred"][:3, 3] - T_gt[:3, 3]) * 1000)}
+    wrong, T_wrong = replay(d["kp_pt_local"], d["T_pred"])
+    right, T_right = replay(d["kp_pt_local"], T_gt.astype(np.float32))
+    out["wrong_basin"], out["right_basin"] = wrong, right
+    out["cost_wrong"] = cost(d["kp_pt_local"], T_wrong)
+    out["cost_right"] = cost(d["kp_pt_local"], T_right)
+    out["cost_gt"] = cost(d["kp_pt_local"], T_gt)
+    return out
+
+
+def jax_gnsteps(d, cfg):
+    """diag_gnsteps.py on a dump at full precision: every LM step's error,
+    step and active count (4 rounds of 10) and each regate's count."""
+    from object_slam_tpu.solvers import pose_opt as po
+    K, inv_sigma2_lvl = _probe_K(cfg)
+    T_gt = d["T_gt"]
+    kp_pt = d["kp_pt_local"]
+    matched = (kp_pt >= 0) & d["valid"]
+    P = d["pt_xyz"].shape[0]
+    ptc = np.clip(kp_pt, 0, P - 1)
+    obs = po.PoseObs(
+        uv=jnp.asarray(d["uv"]),
+        ur=jnp.asarray(np.where(matched, d["ur"], -1.0)),
+        pw=jnp.asarray(d["pt_xyz"][ptc]),
+        inv_sigma2=jnp.asarray(inv_sigma2_lvl[np.clip(d["level"], 0, 7)]),
+        valid=jnp.asarray(matched))
+    gn = jax.jit(lambda T, l, a: po._lm_step(K, T, l, obs, a, 5.991, 7.815))
+    regate = jax.jit(lambda T: po.reproj_residual_jac(K, T, obs))
+    T = jnp.asarray(d["T_pred"])
+    lam = jnp.float32(1e-3)
+    active = obs.valid
+    steps, regates = [], []
+    start = float(np.linalg.norm(np.asarray(T)[:3, 3] - T_gt[:3, 3]) * 1000)
+    for rnd in range(4):
+        for it in range(10):
+            # _lm_step returns (T, lam, converged): the script's two-name
+            # unpacking predates the third
+            T2, lam, _ = gn(T, lam, active)
+            step = np.linalg.norm(np.asarray(T2)[:3, 3] - np.asarray(T)[:3, 3])
+            T = T2
+            err = np.linalg.norm(np.asarray(T)[:3, 3] - T_gt[:3, 3]) * 1000
+            steps.append({"round": rnd, "it": it, "err_mm": float(err),
+                          "step_mm": float(step * 1000),
+                          "active": int(jnp.sum(active))})
+        r, _, stereo, z = regate(T)
+        chi2 = po.edge_chi2(r, obs.inv_sigma2, stereo)
+        gate = jnp.where(stereo, 7.815, 5.991)
+        active = obs.valid & (chi2 <= gate) & (z > 0)
+        regates.append(int(jnp.sum(active)))
+    return {"start_err_mm": start, "steps": steps, "regates": regates}
+
+
+def record_probe_part(part):
+    """make_reference.py probes:<part>: one run, saved under build/probes/
+    (merge collects them). Parts: pose; ret_<size>:<main|noise<k>|loc|
+    locnoise<k>>; kitti_dir:<size>; <kind>_<size>:<main|noise<k>> for
+    kind in PROBE_KITTI_KINDS (kret takes only level_noise)."""
+    import probe_bands
+    if part == "pose":
+        return record_probe_pose()
+    name, run = part.split(":")
+    if name == "kitti_dir":
+        probe_kitti_dir(run)
+        return
+    kind, size = name.rsplit("_", 1)
+    out = {}
+
+    def pin_of(main_name):
+        main = np.load(probe_path(f"{main_name}:main"))
+        return [int(x) for x in main["kf_frames"]]
+    if kind == "ret":
+        cfg = probe_tum_cfg(size)
+        loc = run.startswith("loc")
+        n = ((PROBE_LOC_SMALL if size == "small" else PROBE_LOC_VGA) if loc
+             else (PROBE_RET_SMALL if size == "small" else PROBE_RET_VGA))
+        noise = None
+        if run.startswith(("noise", "locnoise")):
+            seed = int(run.replace("loc", "").replace("noise", ""))
+            noise = (seed, [] if loc else pin_of(name))
+        recs, summary, dumps, kfs = jax_retention(
+            cfg, n, loc_only=loc, noise=noise, dump_all=(run == "main"))
+        probe_bands.put(out, "recs", recs)
+        probe_bands.put(out, "summary", [summary])
+        out["kf_frames"] = np.asarray(kfs, np.int32)
+        if run == "main":
+            # the script's dumps (error past 20 mm); where fewer than two,
+            # the frames of largest error through the same writer
+            errs = {r["f"]: r["err_mm"] for r in recs if r["f"] in dumps}
+            own = [f for f in sorted(dumps) if recs[f]["dumped"]]
+            pick = own[:2] + [f for f in sorted(errs, key=lambda f: -errs[f])
+                              if f not in own][:max(0, 2 - len(own))]
+            out["dump_frames"] = np.asarray(pick, np.int32)
+            out["dump_by_script"] = np.asarray([f in own for f in pick])
+            for j, f in enumerate(pick):
+                for k, v in dumps[f].items():
+                    out[f"dump{j}.{k}"] = v
+    else:
+        cfg, seq = probe_kitti_dir(size)
+        n = PROBE_KITTI_SMALL if size == "small" else PROBE_KITTI_VGA
+        seed = int(run[len("noise"):]) if run.startswith("noise") else None
+        if kind == "kret":
+            if seed is not None:
+                level_noise(seed)
+            per, tot, jumps = jax_kitti_retention(cfg, seq, n)
+            probe_bands.put(out, "totals", [dict(tot, jumps=jumps)])
+        else:
+            noise = None if seed is None else (seed, pin_of(name))
+            if kind == "kitti":
+                per, kfs = jax_kitti(cfg, seq, n, noise=noise)
+            elif kind == "lrec":
+                per, tot, kfs = jax_local_recovery(cfg, seq, n, noise=noise)
+                probe_bands.put(out, "totals", [tot])
+            else:
+                per, tot, kfs = jax_motion_chain(cfg, seq, n, noise=noise)
+                probe_bands.put(out, "totals", [tot])
+            out["kf_frames"] = np.asarray(kfs, np.int32)
+        probe_bands.put(out, "recs", per)
+    np.savez_compressed(probe_path(part), **out)
+    print(f"probes:{part} written", flush=True)
+
+
+def probe_parts(size):
+    k = PROBE_NOISE[size]
+    return ([f"ret_{size}:main"] + [f"ret_{size}:noise{i}" for i in range(k)]
+            + [f"ret_{size}:loc"]
+            + [f"ret_{size}:locnoise{i}" for i in range(PROBE_LOC_NOISE)]
+            + [f"kitti_dir:{size}"]
+            + [f"{kind}_{size}:{run}" for kind in PROBE_KITTI_KINDS
+               for run in ["main"] + [f"noise{i}" for i in range(k)]])
+
+
+def merge_probes(sizes=("small", "vga")):
+    """probes.npz (small) and probes_vga.npz from the parts: each run's
+    tables under <name>.<run>., the dumps, and the reference's replay and
+    GN trace of each dump."""
+    sys.path.insert(0, HERE)
+    import probe_bands
+    pose = dict(np.load(probe_path("pose")))
+    for size, path in (("small", OUT_PROBES), ("vga", OUT_PROBES_VGA)):
+        if size not in sizes:
+            continue
+        out = dict(pose)
+        for part in probe_parts(size):
+            if part.startswith("kitti_dir"):
+                continue
+            name, run = part.split(":")
+            d = np.load(probe_path(part))
+            for k in d.files:
+                if k.startswith("dump"):
+                    out[f"{name}.{k}"] = d[k]
+                elif not k.startswith(("recs.", "summary.", "totals.")):
+                    out[f"{name}.{run}.{k}"] = d[k]
+            for tab in ("recs", "summary", "totals"):
+                t = probe_bands.load(d, tab)
+                if t:
+                    probe_bands.put(out, f"{name}.{run}.{tab}", t)
+        cfg = probe_tum_cfg(size)
+        for j in range(len(out[f"ret_{size}.dump_frames"])):
+            dump = {k.split(".", 2)[2]: v for k, v in out.items()
+                    if k.startswith(f"ret_{size}.dump{j}.")}
+            probe_bands.put(out, f"replay{j}", [jax_replay(dump, cfg)])
+            probe_bands.put(out, f"gnsteps{j}", [jax_gnsteps(dump, cfg)])
+        np.savez_compressed(path, **out)
+        print(f"wrote {path}: {os.path.getsize(path) / 1e3:.1f} kB, "
+              f"{len(out)} arrays", flush=True)
+
+
+def record_probes(part):
+    if part == "merge":
+        merge_probes()
+    elif part.startswith("merge:"):
+        merge_probes((part.split(":", 1)[1],))
+    else:
+        record_probe_part(part)
+
+
 def main():
     parts = sys.argv[1:] or ["slice1", "objects", "tum_vga", "pipelined",
                              "kidnap", "pipelined_tum_vga", "kidnap_tum_vga",
@@ -3852,6 +4826,10 @@ def main():
         record_vocab_counts()
     if "brief" in parts:
         record_brief()
+    if "harvest_cpu" in parts:
+        record_harvest_cpu()
+    if "harvest_cpu:brief" in parts:
+        record_harvest_cpu(("brief",))
     if "kitti_pass_noise" in parts:
         record_kitti_pass_noise()
     for p in parts:
@@ -3861,6 +4839,14 @@ def main():
                 record_studies(part)
         elif p.startswith("studies:"):
             record_studies(p.split(":", 1)[1])
+    for p in parts:
+        # probes: every part in turn, then merge; probes:<part> one of them
+        if p == "probes":
+            for part in (["pose"] + probe_parts("small") + probe_parts("vga")
+                         + ["merge"]):
+                record_probes(part)
+        elif p.startswith("probes:"):
+            record_probes(p.split(":", 1)[1])
     for p in parts:
         # loop_small_noise: every part in turn; loop_small_noise:<part>
         # one of them (noise<k>, merge), for parallel runs
