@@ -211,6 +211,25 @@ Phases, each fatal on failure:
      fail); diag_poseopt_torch.py's 18 initializations; diag_replay_torch
      and diag_gnsteps_torch on the reference's two VGA dumps, and the
      replays with the pose gates exchanged (must fail);
+ 11c. the single-card stage timers of slice 13, each held by what its
+     timed calls compute to the JAX CPU runs in stages.npz
+     (torch_fixtures/stage_bands.py): at the end of the main process,
+     scripts/diag_fullpipe_torch.py on the first 16 of its TUM-VGA renders
+     (the bytes line, flags, keyframes, poses within 2 mm / 0.1 deg, the
+     reference's profiler spans; counted bit-packed, the bytes line must
+     miss); at the end of the second process (the one that ends first),
+     diag_ba_profile_torch.py at its own size (the seven
+     ba_iterate variants, scatter forms included, within the bands of the
+     reference's one-ulp noise runs, their kernel launches per call; the
+     per-point scatter sums over obs_kf must miss); in the third process
+     after the battery, diag_kitti_stages_torch.py on 12 frames of the
+     make_synth_kitti_torch.py directory with the reference's keyframe
+     decisions replayed (the map's census and the eleven stages' counts,
+     the tracking step's flags and the keyframe counts with no floor; two
+     stages on the map from before the 12th frame, and the fused stage
+     with its keyframe decision negated, must miss); and in
+     11's BRIEF harvest, the first render's IC angles from orb_describe
+     held to 2's describe tolerance (offset by one bin, they must miss);
  12. one JSON line of the kernels (orb_describe: launches from the main
      path of 5, host-in-the-loop, and per phase, with its KITTI-pair,
      EuRoC-, corridor- and KITTI-probe-frame numbers; extract_patches: its
@@ -581,6 +600,44 @@ def patch_levels_row(levels, ys, xs, lvl, tag):
             "per_level_device_ms": per_level_dev_ms}
 
 
+def angle_bins(a):
+    """The steered-BRIEF rotation bin of each angle."""
+    import torch
+    from object_slam_tpu_torch.ops import describe as dsc
+    return torch.remainder(torch.round(
+        a / (2.0 * math.pi) * dsc.N_ANGLE_BINS).to(torch.int64),
+        dsc.N_ANGLE_BINS)
+
+
+def angle_hold(k_ang, p_ang, near, valid=None):
+    """orb_describe's angles k_ang against its plain version's p_ang, as
+    phase_describe states the tolerance: (the largest difference mod 2 pi
+    outside the keypoints near the plain version's stability gate, the
+    share of keypoints whose rotation bins agree, the number near the
+    gate, the number of those that differ by more than 1e-5), over the
+    keypoints of valid (all if None)."""
+    import torch
+    if valid is not None:
+        k_ang, p_ang, near = k_ang[valid], p_ang[valid], near[valid]
+    err = (torch.remainder(k_ang.double() - p_ang.double() + math.pi,
+                           2 * math.pi) - math.pi).abs()
+    max_err = float(err[~near].max()) if bool((~near).any()) else 0.0
+    same = angle_bins(k_ang) == angle_bins(p_ang)
+    return (max_err, float(same.double().mean()), int(near.sum()),
+            int((near & (err > 1e-5)).sum()), same)
+
+
+def angle_misses(max_err, same_frac):
+    """The describe tolerance's misses: angles beyond 1e-5 rad outside the
+    near-gate keypoints, bins agreeing for less than 99.9%."""
+    out = []
+    if not max_err <= 1e-5:
+        out.append(f"angle error {max_err:.3e} rad > 1e-5")
+    if same_frac < 0.999:
+        out.append(f"bins agree for only {same_frac:.6f}")
+    return out
+
+
 def phase_describe(ex, levels, corners, tag: str = "TUM VGA",
                    halves=None, timed: bool = True):
     """orb_describe against its plain version at the main path's shapes:
@@ -615,18 +672,8 @@ def phase_describe(ex, levels, corners, tag: str = "TUM VGA",
     near = dsc.near_gate(lv, cy, cx, lvl, radius=radius)
     torch.cuda.synchronize()
 
-    def bins(a):
-        return torch.remainder(torch.round(
-            a / (2.0 * math.pi) * dsc.N_ANGLE_BINS).to(torch.int64),
-            dsc.N_ANGLE_BINS)
-
-    err = (torch.remainder(k_ang.double() - p_ang.double() + math.pi,
-                           2 * math.pi) - math.pi).abs()
-    max_err = float(err[~near].max()) if bool((~near).any()) else 0.0
-    n_near = int(near.sum())
-    n_near_diff = int((near & (err > 1e-5)).sum())
-    same = bins(k_ang) == bins(p_ang)
-    same_frac = float(same.double().mean())
+    max_err, same_frac, n_near, n_near_diff, same = angle_hold(
+        k_ang, p_ang, near)
     bad_bits = int(torch.sum(k_desc[same] != p_desc[same]))
     n = cy.shape[0]
 
@@ -681,7 +728,7 @@ def phase_describe(ex, levels, corners, tag: str = "TUM VGA",
         touched = torch.zeros((H, W), dtype=torch.bool, device="cuda")
         touched[rows[:, :, None], cols[:, None, :]] = True
         n_bytes += int(touched.sum()) * 4
-    n_bytes += int(torch.unique(bins(k_ang)).numel()) * 2 * 256 * 2
+    n_bytes += int(torch.unique(angle_bins(k_ang)).numel()) * 2 * 256 * 2
     n_bytes += n * 3 * 4 + n * (4 + 8 * 4)
     d = np.arange(32) - 15
     n_circ = int(np.sum(d[:, None] ** 2 + d[None, :] ** 2 <= radius ** 2))
@@ -705,10 +752,9 @@ def phase_describe(ex, levels, corners, tag: str = "TUM VGA",
              f" us ({two['two_launches_device_ms'] * 1e3:.2f} us on the "
              f"device), each bit-equal to its half of the pair's"),
           flush=True)
-    if not max_err <= 1e-5:
-        fail(f"orb_describe angle error {max_err} rad > 1e-5")
-    if same_frac < 0.999:
-        fail(f"orb_describe bins agree for only {same_frac:.6f}")
+    bad = angle_misses(max_err, same_frac)
+    if bad:
+        fail("orb_describe: " + "; ".join(bad))
     if bad_bits:
         fail(f"orb_describe: {bad_bits} descriptor words differ from the "
              f"plain version where the bins agree")
@@ -4007,13 +4053,18 @@ def brief_tie(sel, chosen, at, want_tests):
     return k, float(np.min(np.abs(r - at[k])))
 
 
-def harvest_angle_share():
-    """The share of the BRIEF harvest's first render's valid keypoints
-    whose IC angle from orb_describe differs in any bit from its plain
-    version's on the same levels and corners (the kernel sums the moments
-    in another order): the windows, rotated by these angles, differ from
-    the CPU port's at least there. One launch, outside the counted
-    harvest."""
+def harvest_angle_hold():
+    """The BRIEF harvest's first render on the card: orb_describe's IC
+    angle of every valid keypoint against its plain version's on the same
+    levels and corners, held to phase_describe's tolerance (within 1e-5
+    rad mod 2 pi but where the plain version's stability margin is below
+    1e-4 tau mass; bins equal for >= 99.9%). The kernel sums the moments
+    in another order, so the bits of the angles differ; the windows,
+    rotated by these angles, differ from the CPU port's at least there.
+    Then the angles offset by one bin's width (a planted fault) must miss.
+    One launch, outside the counted harvest. Returns (the share of angles
+    that differ in some bit, max error, bins' agreement, near-gate count,
+    those of them that differ by more than 1e-5)."""
     import torch
     from object_slam_tpu_torch.config import SlamConfig
     from object_slam_tpu_torch.datasets.synthetic import (SyntheticScene,
@@ -4027,11 +4078,24 @@ def harvest_angle_share():
     img = torch.from_numpy(np.asarray(gray, np.float32)).cuda()
     levels, det, cy, cx, counts = ex._detect(img)
     lvl = ex._level_ids(counts, img.device)
+    radius = cfg.orb.half_patch
     k_ang, _ = ex._kernel(1, img.device)(levels, cy, cx, lvl)
     p_ang, _ = dsc.orb_describe_ref(levels, cy, cx, lvl, ex.brief_idx1,
-                                    ex.brief_idx2, radius=cfg.orb.half_patch)
+                                    ex.brief_idx2, radius=radius)
+    near = dsc.near_gate(levels, cy, cx, lvl, radius=radius)
     valid = det[2]
-    return float((k_ang != p_ang)[valid].double().mean())
+    share = float((k_ang != p_ang)[valid].double().mean())
+    max_err, same_frac, n_near, n_near_diff, _ = angle_hold(
+        k_ang, p_ang, near, valid)
+    bad = angle_misses(max_err, same_frac)
+    if bad:
+        fail("train_brief: the harvest's IC angles on the card miss the "
+             "describe tolerance: " + "; ".join(bad))
+    shifted = k_ang + 2.0 * math.pi / dsc.N_ANGLE_BINS
+    if not angle_misses(*angle_hold(shifted, p_ang, near, valid)[:2]):
+        fail("train_brief: the harvest's angles offset by one bin's width "
+             "pass the describe tolerance")
+    return share, max_err, same_frac, n_near, n_near_diff
 
 
 def phase_train_brief(card):
@@ -4087,7 +4151,8 @@ def phase_train_brief(card):
     cpu_hash = ref["cpu_port.window_hash"]
     n_win_diff = (int((hashes != cpu_hash).sum())
                   if hashes.shape == cpu_hash.shape else -1)
-    angle_share = harvest_angle_share()
+    angle_share, angle_err, bins_frac, n_near, n_near_diff = \
+        harvest_angle_hold()
     rel = (np.abs(sums - ref["full.sums"]) / np.abs(ref["full.sums"])
            if sums.shape == ref["full.sums"].shape else np.array([np.inf]))
     # extract_patches at these shapes: the first render's launch, beside
@@ -4137,9 +4202,12 @@ def phase_train_brief(card):
           f"{got_calls == ref_calls} ({len(got_calls)} / {len(ref_calls)} "
           f"calls); {n_win_diff} of {hashes.size} windows differ from the "
           f"CPU port's harvest (window hashes; the first render's IC angles "
-          f"from the kernel differ from its plain version's in "
+          f"from the kernel differ from its plain version's in some bit in "
           f"{angle_share:.4f} of its keypoints, and each window is rotated "
-          f"by its angle); patch sums against the reference's: max relative "
+          f"by its angle; held to the describe tolerance: max error "
+          f"{angle_err:.3e} rad outside {n_near} near-gate keypoints "
+          f"({n_near_diff} of them differ), bins agree {bins_frac:.6f}; "
+          f"offset by one bin's width, they miss); patch sums against the reference's: max relative "
           f"{float(rel.max()):.3e}, median {float(np.median(rel)):.3e}; "
           f"selection over {tb.N_CANDIDATES} draws -> {len(sel8.ia)} tests x "
           f"{patches.shape[0]} patches ({bits_bytes / 2 ** 30:.2f} GiB of "
@@ -4163,16 +4231,19 @@ def phase_train_brief(card):
         fail(f"train_brief: quality {q8.tolist()} against {q8_ref.tolist()}")
     row["launches"] = launches["extract_patches"]
     return launches, {"harvest_s": harvest_s, "bits_s": bits_s,
+                      "angle_share": angle_share, "angle_max_err": angle_err,
+                      "angle_bins": bins_frac,
                       "select_s": select_s, "select8_s": select8_s,
                       "bits_bytes": bits_bytes,
                       "windows_differ_from_cpu": n_win_diff}, row
 
 
 def tools_child_main(out_json: str):
-    """The third process: the generators, the battery, the vocabulary
-    trainer and the BRIEF-pattern learner on the card, then the main
-    path's kidnap (phase_kidnap); the launches by phase, the phase
-    seconds, the timings and extract_patches' row at the harvest's shapes
+    """The third process: the generators, the battery, the KITTI stage
+    timer (phase_stage_kitti), the vocabulary trainer and the
+    BRIEF-pattern learner on the card, then the main path's kidnap
+    (phase_kidnap); the launches by phase, the phase seconds, the timings,
+    the stage timer's ms and extract_patches' row at the harvest's shapes
     written to out_json."""
     import torch
     from object_slam_tpu_torch.ops import build
@@ -4184,6 +4255,9 @@ def tools_child_main(out_json: str):
     root = phase_timed("synth_dirs", phase_synth_dirs, card)
     exp = phase_timed("experiments", phase_experiments, root, card)
     by_phase.update({f"experiments_{k}": v for k, v in exp.items()})
+    # the KITTI stage timer of slice 13 on the battery's KITTI directory
+    by_phase["stage_kitti"], kitti_stage_ms = phase_timed(
+        "stage_kitti", phase_stage_kitti, card, root)
     by_phase["train_vocab"], vocab_s = phase_timed(
         "train_vocab", phase_train_vocab, card)
     by_phase["train_brief"], brief_s, brief_row = phase_timed(
@@ -4197,7 +4271,8 @@ def tools_child_main(out_json: str):
     with open(out_json, "w") as f:
         json.dump({"by_phase": by_phase, "phase_s": PHASE_S,
                    "vocab_s": vocab_s, "brief_s": brief_s,
-                   "brief_row": brief_row}, f)
+                   "brief_row": brief_row,
+                   "kitti_stage_ms": kitti_stage_ms}, f)
 
 
 # ---------------------------------------------------------------------------
@@ -5305,6 +5380,244 @@ def phase_probe_kitti(card, poses, frames, strict=True):
              "check on the matches and inliers")
     return out, {k: row[k] for k in ("max_abs_err", "bound_ms", "bound_by")}
 
+# ---------------------------------------------------------------------------
+# the single-card stage timers of scripts/*_torch.py (slice 13):
+# diag_fullpipe in the main process after its other phases,
+# diag_ba_profile at the end of the second, diag_kitti_stages in the third
+# after the battery; each held by what its timed calls compute to the
+# reference's runs in stages.npz
+# ---------------------------------------------------------------------------
+
+STAGES_REF = os.path.join(FIXTURES, "stages.npz")
+STAGE_FULLPIPE_FRAMES = 16
+STAGE_KITTI_FRAMES = 12
+STAGE_KITTI_REPS = 5
+STAGE_BA_SIZE = (40, 2048, 8192)    # diag_ba_profile.py's defaults
+
+
+def stage_bands_module():
+    if FIXTURES not in sys.path:
+        sys.path.insert(0, FIXTURES)
+    import stage_bands
+    return stage_bands
+
+
+def phase_stage_fullpipe(card, frames, sems):
+    """scripts/diag_fullpipe_torch.py at TUM VGA on the first
+    STAGE_FULLPIPE_FRAMES of this process's renders (bench.py's room;
+    depth and rgb as rendered here, in float32, then u16 / u8 as the
+    script makes them), held to the reference's run of the same frames
+    (stages.npz "fullpipe_vga", stage_bands.fullpipe_misses: the bytes
+    line, flags and keyframes exactly, poses within 2 mm / 0.1 deg, the
+    reference's profiler spans with their calls), one orb_describe per
+    frame; then a run one frame past the script's warm-up with the
+    semantic arrays counted bit-packed (faults.packed_semantic_bytes),
+    which must miss the bytes line.
+    Returns the launches and the medians."""
+    import torch
+    from object_slam_tpu_torch.config import SlamConfig
+    sys.path.insert(0, FIXTURES)
+    import faults
+    sb = stage_bands_module()
+    fp = script_module("diag_fullpipe_torch")
+    fx = np.load(STAGES_REF)
+    cfg = SlamConfig.tum_rgbd()
+    n = STAGE_FULLPIPE_FRAMES
+    sums = [float(np.sum(g, dtype=np.float64)) for g, _, _ in frames[:n]]
+    if not np.array_equal(sums, fx["fullpipe_vga.main.gray_sums"]):
+        fail("stage fullpipe: the rendered frames differ from the "
+             "reference run's")
+    inputs = [fp.to_inputs(cfg, d, rgb, sems[i])
+              for i, (_, d, rgb) in enumerate(frames[:n])]
+    lines = []
+    torch.cuda.synchronize()
+    zero_counts()
+    res = fp.run(cfg, n, device="cuda", frames=inputs, log=lines.append)
+    launches = read_counts("stage fullpipe", n)
+    bad = sb.fullpipe_misses(res, fx, "vga")
+    undo = faults.packed_semantic_bytes(fp)
+    try:
+        res_f = fp.run(cfg, fp.WARMUP + 1, device="cuda", frames=inputs,
+                       log=lambda s: None)
+    finally:
+        undo()
+    fault = sb.fullpipe_misses(res_f, fx, "vga")
+    print(f"stage fullpipe [{card}]: diag_fullpipe_torch.py, {n} TUM-VGA "
+          f"frames:\n" + "\n".join(lines) + f"\n  held to the reference's "
+          f"run: {len(bad)} misses {bad[:4]}; keyframes {res['kf_frames']}; "
+          f"launches {launches}; the semantic arrays counted bit-packed: "
+          f"{[m for m in fault if m.startswith('bytes')]}", flush=True)
+    if bad:
+        fail("stage fullpipe: " + "; ".join(bad[:4]))
+    if not any(m.startswith("bytes") for m in fault):
+        fail("stage fullpipe: the semantic arrays counted bit-packed pass "
+             "the bytes line")
+    return launches, {"build_median_ms": res["build_median_ms"],
+                      "track_median_ms": res["track_median_ms"]}
+
+
+def phase_stage_ba_profile(card):
+    """scripts/diag_ba_profile_torch.py at its own size (40 keyframes x
+    2048 observations, 8192 points) on the card: the seven variants, each
+    ms per call over 3 calls after a warm call, its kernel launches and
+    its copies and sets per call (--print-launches), each result held to
+    the reference's (stages.npz "ba_full": poses, cost, the points' step
+    quantiles and sum within stage_bands' bands of its 4 one-ulp noise
+    runs), the
+    scatter form also against the blocked and the slot forms (the card's
+    index_add_ adds atomically, in no fixed order); no port kernel
+    launched; then the scatter form with its per-point sums over obs_kf
+    (faults.scatter_points_over_keyframes), which must miss. Returns
+    {variant: {"ms", "launches", "copies"}}."""
+    import torch
+    from object_slam_tpu_torch.config import SlamConfig
+    sys.path.insert(0, FIXTURES)
+    import faults
+    sb = stage_bands_module()
+    prof = script_module("diag_ba_profile_torch")
+    fx = np.load(STAGES_REF)
+    cfg = SlamConfig.kitti_stereo()
+    names = [v[0] for v in prof.VARIANTS]
+    lines = []
+    torch.cuda.synchronize()
+    zero_counts()
+    runs = prof.run(cfg, *STAGE_BA_SIZE, device="cuda", launches=True,
+                    log=lines.append)
+    if counts_now() != {"extract_patches": 0, "orb_describe": 0}:
+        fail(f"stage ba_profile: kernel launches {counts_now()}")
+    arrays, slot = runs["problem"]
+    if sb.problem_hash(arrays, slot) != str(fx["ba_full.main.problem_hash"]):
+        fail("stage ba_profile: the problem differs from the reference "
+             "script's")
+
+    def record(r):
+        return sb.ba_record(arrays["pt_xyz"], r["kf_pose"].cpu().numpy(),
+                            r["pt_xyz"].cpu().numpy(), r["cost"])
+    recs = {name: record(runs[name]) for name in names}
+    bad = {name: sb.ba_misses(recs[name], fx, "full", i)
+           for i, name in enumerate(names)}
+    pair = {names[o]: sb.ba_pair_misses(recs[names[0]], recs[names[o]], fx,
+                                        "full", 0) for o in (1, 5)}
+    undo = faults.scatter_points_over_keyframes()
+    try:
+        fr = prof.run(cfg, *STAGE_BA_SIZE, device="cuda", reps=0,
+                      variants=[names[0]], log=lambda s: None)
+    finally:
+        undo()
+    fault = sb.ba_misses(record(fr[names[0]]), fx, "full", 0)
+    print(f"stage ba_profile [{card}]: diag_ba_profile_torch.py "
+          f"--print-launches, Wtot {STAGE_BA_SIZE[0]} x N "
+          f"{STAGE_BA_SIZE[1]}, Lp {STAGE_BA_SIZE[2]} "
+          f"({int(arrays['obs_valid'].sum())} live observations):\n"
+          + "\n".join(lines) + "\n  held to the reference's runs: "
+          + ", ".join(f"{k.split()[0]} {k.split()[1]} {k.split()[2]}: "
+                      f"{len(v)} misses" for k, v in bad.items())
+          + "; scatter against "
+          + ", ".join(f"{k.split()[0]}: {len(v)} misses"
+                      for k, v in pair.items())
+          + f"; cost {recs[names[0]]['cost'][0]:.4f} against the "
+          f"reference's {float(fx['ba_full.main.v0.cost'][0]):.4f}; the "
+          f"per-point sums over obs_kf: cost "
+          f"{float(fr[names[0]]['cost']):.4f}, {len(fault)} misses",
+          flush=True)
+    misses = [f"{k}: {v[:2]}" for k, v in {**bad, **pair}.items() if v]
+    if misses:
+        fail("stage ba_profile: " + "; ".join(misses))
+    if not any(k == "cost" for k, *_ in fault):
+        fail("stage ba_profile: the per-point sums over obs_kf pass the "
+             "cost's band")
+    return {name: {k: runs[name][k] for k in ("ms", "launches", "copies")}
+            for name in names}
+
+
+def phase_stage_kitti(card, root):
+    """scripts/diag_kitti_stages_torch.py at KITTI width on the first
+    STAGE_KITTI_FRAMES frames of the directory make_synth_kitti_torch.py
+    wrote (phase_synth_dirs), the reference run's keyframe decisions
+    replayed (its own printed where they part), one orb_describe per pair;
+    the eleven stages each over STAGE_KITTI_REPS calls after a warm call
+    (the frame build's orb_describe launches counted apart), held to the
+    reference's run (stages.npz "kitti_vga": the map's census and every
+    stage's counts, exact where its 4 pinned one-ulp noise runs agree,
+    else within 2x their spread, stage_bands' floors), the map left as
+    the stages found it; then two stages on the map from before the 12th
+    frame (faults.stage_map_before_last_frame), and the fused stage with
+    the keyframe decision negated (faults.inverted_keyframe_decision),
+    each of which must miss. Returns the drive's launches and {stage:
+    ms}."""
+    import torch
+    from object_slam_tpu_torch.config import SlamConfig
+    from object_slam_tpu_torch.datasets import kitti
+    sys.path.insert(0, FIXTURES)
+    import faults
+    sb = stage_bands_module()
+    st = script_module("diag_kitti_stages_torch")
+    fx = np.load(STAGES_REF)
+    cfg = SlamConfig.kitti_stereo()
+    seq = os.path.join(root, "kitti")
+    n = STAGE_KITTI_FRAMES
+    gl = kitti.load_frame_arrays(kitti.load_sequence(seq)[n - 1])[0]
+    if float(np.sum(gl, dtype=np.float64)) != \
+            float(fx["kitti_vga.main.gray_sum"]):
+        fail("stage kitti: the directory's frames differ from the "
+             "reference run's")
+    kfs = [int(x) for x in fx["kitti_vga.main.kf_frames"]]
+    hook, swap = faults.stage_map_before_last_frame(n)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    state = st.drive(cfg, seq, "cuda", n, kfs, hook)
+    torch.cuda.synchronize()
+    drive_s = time.perf_counter() - t0
+    try:
+        launches = read_counts("stage kitti drive", n)
+        lines = []
+        zero_counts()
+        res = st.time_stages(state, reps=STAGE_KITTI_REPS, log=lines.append)
+        stage_launches = counts_now()
+        res_f = st.time_stages(swap(state), reps=0,
+                               stages=("covisibility", "cull_points"),
+                               log=lambda s: None)
+        undo = faults.inverted_keyframe_decision()
+        try:
+            res_kf = st.time_stages(state, reps=0, stages=("fused",),
+                                    log=lambda s: None)
+        finally:
+            undo()
+    finally:
+        state["sys"].shutdown()
+    dec = state["decisions"]
+    differ = [f for f in sorted(dec) if dec[f][0] != (f in set(kfs))]
+    bad = sb.kitti_misses(res, fx, "vga")
+    fault = [k for k, *_ in sb.kitti_misses(res_f, fx, "vga")]
+    fault_kf = [k for k, *_ in sb.kitti_misses(res_kf, fx, "vga")]
+    print(f"stage kitti [{card}]: diag_kitti_stages_torch.py, {n} frames of "
+          f"{seq} in {drive_s:.1f} s, keyframes replayed {kfs} (its own "
+          f"decisions part first at "
+          f"{differ[0] if differ else None}"
+          f"{f', {dec[differ[0]][1]} inliers' if differ else ''}); "
+          f"{STAGE_KITTI_REPS} calls per stage after a warm call:\n"
+          + "\n".join(lines) + f"\n  map {res['map']}; held to the "
+          f"reference's run: {len(bad)} misses {bad[:4]}; the map "
+          f"unchanged by the stages {res['map_unchanged']}; drive launches "
+          f"{launches}, the stages' {stage_launches}; on the map before "
+          f"frame {n}: misses {fault[:4]}; the keyframe decision negated: "
+          f"misses {fault_kf[:4]}", flush=True)
+    want = {"extract_patches": 0, "orb_describe": STAGE_KITTI_REPS + 1}
+    if stage_launches != want:
+        fail(f"stage kitti: the stages launched {stage_launches}, expected "
+             f"{want}")
+    if bad:
+        fail(f"stage kitti: {bad[:4]}")
+    if not res["map_unchanged"]:
+        fail("stage kitti: a stage changed the map it was given")
+    if not any(k.startswith("map.") for k in fault):
+        fail("stage kitti: the stages on the map before the last frame pass")
+    if not {"fused.need_kf", "fused.need_kf_hard"} <= set(fault_kf):
+        fail("stage kitti: the fused stage with the keyframe decision "
+             "negated passes")
+    return launches, {k: v["ms"] for k, v in res["stages"].items()}
+
 
 PHASE_S = {}
 MONO_ARG = "--mono-phases"
@@ -5375,10 +5688,11 @@ def kitti_phases(by_phase, card):
 
 
 def mono_child_main(out_json: str):
-    """The second process: mono_phases, batched tracking, then
-    kitti_phases, on the same card; its results (the launches by phase,
-    the phase seconds, the mono and batched ms, orb_describe's KITTI-shape
-    numbers) written to out_json. It renders its own frames for the
+    """The second process: mono_phases, batched tracking, kitti_phases,
+    then the BA profile (phase_stage_ba_profile), on the same card; its
+    results (the launches by phase, the phase seconds, the mono, batched
+    and BA profile ms, orb_describe's KITTI-shape numbers) written to
+    out_json. It renders its own frames for the
     checkpoint and batched phases."""
     import torch
     from object_slam_tpu_torch.ops import build
@@ -5392,10 +5706,13 @@ def mono_child_main(out_json: str):
     by_phase["batched"], batched_ms = phase_timed("batched", phase_batched,
                                                   card, frames)
     kitti_row = kitti_phases(by_phase, card)
+    # the BA profile of slice 13: this process ends first
+    ba_ms = phase_timed("stage_ba_profile", phase_stage_ba_profile, card)
     with open(out_json, "w") as f:
         json.dump({"by_phase": by_phase, "phase_s": PHASE_S,
                    "mono_ms": mono_ms, "init_ms": init_ms,
-                   "batched_ms": batched_ms, "kitti_row": kitti_row}, f)
+                   "batched_ms": batched_ms, "kitti_row": kitti_row,
+                   "ba_ms": ba_ms}, f)
 
 
 def start_child(arg: str = MONO_ARG, stem: str = "chip_smoke_mono"):
@@ -5538,10 +5855,14 @@ def main():
     by_phase["tum_driver_loop"] = phase_timed(
         "tum_driver_loop", phase_tum, main_cfg, poses, frames, sems, card,
         loop=True)
+    # the full-pipeline stage timer of slice 13 on the first 16 renders
+    by_phase["stage_fullpipe"], fullpipe_ms = phase_timed(
+        "stage_fullpipe", phase_stage_fullpipe, card, frames, sems)
 
-    rows[1]["kitti"] = finish_child(
+    cres = finish_child(
         child, by_phase, "second (mono, localization, checkpoint, EuRoC "
-        "driver, KITTI)", "second.")["kitti_row"]
+        "driver, KITTI, the BA profile)", "second.")
+    rows[1]["kitti"] = cres["kitti_row"]
     tres = finish_child(tools, by_phase, "third (generators, experiment "
                         "battery, vocabulary and BRIEF trainers)", "third.")
     sres = finish_child(
@@ -5586,6 +5907,10 @@ def main():
                         isinstance(v, float) and math.isfinite(v)):
                     fail(f"{row['name']} {shape} field {k} is not a finite "
                          f"number")
+    print(f"stage timers [{card}]: diag_fullpipe build / track median ms "
+          f"{json.dumps(fullpipe_ms)}; diag_kitti_stages ms "
+          f"{json.dumps(tres['kitti_stage_ms'])}; diag_ba_profile "
+          f"{json.dumps(cres['ba_ms'])}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all; "
           f"phases (s) {json.dumps(PHASE_S)}", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -867,19 +867,10 @@ class SlamSystem:
         cfg = self.cfg
         last = self.last_frame
         with self._span("track_fused"):
-            self.map, tr2, obj3d, packed, vel, okd = trk.track_frame_fused(
-                self.K, self.map, frame, last, self.velocity,
+            self.map, tr2, obj3d, packed, vel, okd = self._fused_impl(
+                self.map, frame, last, self.velocity,
                 max(self.last_kf_id, 0), self.frames_since_kf, self.frame_id,
-                self._kf_inliers, self.scale_factors, self.inv_sigma2,
-                self.log_scale,
-                motion_radius=cfg.tracking.motion_model_radius,
-                close_depth=cfg.camera.th_depth * cfg.camera.baseline,
-                max_frames_between_kf=cfg.tracking.max_frames_between_kf,
-                local_cap=cfg.caps.local_search_pts,
-                local_radius_mult=cfg.tracking.local_radius_mult,
-                local_level_window=cfg.tracking.local_level_window,
-                motion_rot_check=cfg.tracking.motion_rot_check,
-                obj_hooks=self._obj_hooks)
+                self._kf_inliers)
         frame = frame._replace(Tcw=tr2.Tcw, kp_pt=tr2.kp_pt, pose_ok=okd,
                                obj3d=obj3d)
         self.debug_last = {"tr_motion": tr2, "tr_local": tr2,
@@ -903,6 +894,24 @@ class SlamSystem:
             self._resolve_fused_pending()
             return self.last_frame
         return frame
+
+    def _fused_impl(self, m, frame, last, velocity, last_kf_id,
+                    frames_since_kf, frame_id, last_kf_inliers):
+        """tracking.track_frame_fused with this system's configuration and
+        object hooks: (map, result, obj3d, packed, velocity, pose_ok)."""
+        cfg = self.cfg
+        return trk.track_frame_fused(
+            self.K, m, frame, last, velocity, last_kf_id, frames_since_kf,
+            frame_id, last_kf_inliers, self.scale_factors, self.inv_sigma2,
+            self.log_scale,
+            motion_radius=cfg.tracking.motion_model_radius,
+            close_depth=cfg.camera.th_depth * cfg.camera.baseline,
+            max_frames_between_kf=cfg.tracking.max_frames_between_kf,
+            local_cap=cfg.caps.local_search_pts,
+            local_radius_mult=cfg.tracking.local_radius_mult,
+            local_level_window=cfg.tracking.local_level_window,
+            motion_rot_check=cfg.tracking.motion_rot_check,
+            obj_hooks=self._obj_hooks)
 
     def _resolve_fused_pending(self):
         """Consume the newest fused dispatch's lagged result (strict

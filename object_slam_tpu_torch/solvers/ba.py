@@ -4,11 +4,14 @@ observation slabs.
 Counterpart of object_slam_tpu/solvers/ba.py. The problem is a flat
 observation slab; point blocks are eliminated in closed form; the reduced
 camera system is solved with block-Jacobi preconditioned CG; LM step
-control accepts only cost-decreasing steps. Observations use the
+control accepts only cost-decreasing steps. Every solver path uses the
 reference's blocked layout (``block_n``: [Kk, block_n] rows per keyframe)
 and per-point observation-slot table (``pt_obs_slot``), so the per-KF and
 per-point reductions are axis sums; ``global_ba`` builds that table over
 the whole map (``obs_slot_table``) where the reference takes segment sums.
+``ba_iterate`` also takes the reference's scatter forms (``block_n=None``,
+``pt_obs_slot=None``: segment sums by ``index_add_``), which
+scripts/diag_ba_profile_torch.py times against the blocked ones.
 
 ``comm`` is the counterpart of the reference's ``comm_axis`` (its
 ``psum`` over a mesh axis): the observation slab holds only the blocks of
@@ -51,14 +54,21 @@ class BAProblem(NamedTuple):
 
 
 def _residual_jacobians(K: Intrinsics, prob: BAProblem, kf_pose, pt_xyz,
-                        block_n: int):
+                        block_n: int | None):
     """Per-obs residuals r [O, 3], pose Jacobian Jc [O, 3, 6], point
-    Jacobian Jp [O, 3, 3], stereo mask, camera-frame depth."""
+    Jacobian Jp [O, 3, 3], stereo mask, camera-frame depth. block_n None:
+    each observation's pose gathered by obs_kf (the reference's
+    unblocked form)."""
     Kk = kf_pose.shape[0]
-    pw_b = pt_xyz[prob.obs_pt.long()].reshape(Kk, block_n, 3)
-    R_b = kf_pose[:, :3, :3]
-    pc = (torch.einsum('kij,knj->kni', R_b, pw_b)
-          + kf_pose[:, None, :3, 3]).reshape(-1, 3)
+    if block_n is not None:
+        pw_b = pt_xyz[prob.obs_pt.long()].reshape(Kk, block_n, 3)
+        R_b = kf_pose[:, :3, :3]
+        pc = (torch.einsum('kij,knj->kni', R_b, pw_b)
+              + kf_pose[:, None, :3, 3]).reshape(-1, 3)
+    else:
+        T = kf_pose[prob.obs_kf.long()]
+        pc = (torch.einsum('oij,oj->oi', T[:, :3, :3],
+                           pt_xyz[prob.obs_pt.long()]) + T[:, :3, 3])
     x, y = pc[..., 0], pc[..., 1]
     z = torch.clamp(pc[..., 2], min=1e-6)
     iz = 1.0 / z
@@ -81,8 +91,12 @@ def _residual_jacobians(K: Intrinsics, prob: BAProblem, kf_pose, pt_xyz,
         pc.shape[:-1] + (3, 3))
     dpc_dxi = torch.cat([eye, -se3.hat(pc)], dim=-1)
     Jc = -(dproj @ dpc_dxi)
-    Jp = -torch.einsum('knij,kjl->knil', dproj.reshape(Kk, block_n, 3, 3),
-                       R_b).reshape(-1, 3, 3)
+    if block_n is not None:
+        Jp = -torch.einsum('knij,kjl->knil',
+                           dproj.reshape(Kk, block_n, 3, 3),
+                           R_b).reshape(-1, 3, 3)
+    else:
+        Jp = -(dproj @ T[:, :3, :3])
     return r, Jc, Jp, stereo, pc[..., 2]
 
 
@@ -124,11 +138,11 @@ def _spd_inv3(H):
 
 
 def _robust_cost(K: Intrinsics, prob: BAProblem, kf_pose, pt_xyz,
-                 chi2_mono, chi2_stereo, block_n: int, comm=None):
+                 chi2_mono, chi2_stereo, block_n: int | None, comm=None):
     """Total Huber cost over live observations; points behind a camera
     carry a 1e4 penalty. With comm, this shard's observations, summed
     over the ranks."""
-    if comm is not None:
+    if comm is not None and block_n is not None:
         kf_pose = kf_pose[comm.kf_ids]
     r, _, _, stereo, z = _residual_jacobians(K, prob, kf_pose, pt_xyz,
                                              block_n=block_n)
@@ -147,41 +161,77 @@ def _robust_cost(K: Intrinsics, prob: BAProblem, kf_pose, pt_xyz,
     return cost
 
 
+def _scatter_rows(prob: BAProblem):
+    """The segment ids of the scatter forms' sums: (per keyframe, per
+    point)."""
+    return prob.obs_kf.long(), prob.obs_pt.long()
+
+
 def ba_iterate(K: Intrinsics, prob: BAProblem, n_iters: int,
                chi2_mono: float = 5.991, chi2_stereo: float = 7.815,
                damping: float = 1e-4, cg_iters: int = 24,
-               robust: bool = True, *, block_n: int, pt_obs_slot,
+               robust: bool = True, *, block_n: int | None, pt_obs_slot,
                comm=None):
-    """n_iters LM/Schur iterations with a convergence exit. block_n: the
-    observation slots per keyframe; pt_obs_slot [P, M]: each point's
-    observation indices (-1 empty); comm: the all-reduce hook of a
-    sharded slab (module docstring), None on one process. Returns
-    (kf_pose, pt_xyz)."""
+    """n_iters LM/Schur iterations with a convergence exit. Returns
+    (kf_pose, pt_xyz).
+
+    block_n: the observation slots per keyframe (the slab in [Kk, block_n]
+    row-major blocks, per-keyframe sums as axis sums); None: the
+    reference's scatter form, per-keyframe sums by index_add_ over obs_kf
+    and each observation's pose gathered by obs_kf. pt_obs_slot [P, M]:
+    each point's observation indices (-1 empty), per-point sums as a
+    gather and an axis sum; None: the scatter form, index_add_ over
+    obs_pt. Both arguments are required, so no caller takes a scatter form
+    by default: on the card index_add_ adds atomically, in another order
+    on each run, so the scatter forms are not deterministic there, and no
+    tracking, mapping, loop or sharded path takes them (they are the forms
+    scripts/diag_ba_profile_torch.py profiles).
+
+    comm: the all-reduce hook of a sharded slab (module docstring), None
+    on one process. With the scatter forms the slab holds this rank's
+    observations and the sums are this rank's rows, left to comm.reduce
+    to sum over the ranks (the reference's psum of its segment sums)."""
     Kk = prob.kf_pose.shape[0]
     O = prob.obs_kf.shape[0]
+    P = prob.pt_xyz.shape[0]
     obs_pt = prob.obs_pt.long()
     dev = prob.pt_xyz.device
-    slot_ok = pt_obs_slot >= 0
-    slot_idx = torch.clamp(pt_obs_slot, 0, O - 1).long()
-    # the keyframe blocks of this slab
+    if block_n is None or pt_obs_slot is None:
+        seg_kf_ids, seg_pt_ids = _scatter_rows(prob)
+    # the keyframe blocks of this slab (the blocked form), or the
+    # keyframes whose rows this rank hands to comm.reduce
     Kl = Kk if comm is None else comm.kf_ids.shape[0]
 
     def seg_kf(vals):
+        if block_n is None:
+            out = vals.new_zeros((Kk,) + vals.shape[1:]).index_add_(
+                0, seg_kf_ids, vals)
+            return out if comm is None else out[comm.kf_ids]
         return torch.sum(vals.reshape((Kl, block_n) + vals.shape[1:]), dim=1)
 
+    if pt_obs_slot is not None:
+        slot_ok = pt_obs_slot >= 0
+        slot_idx = torch.clamp(pt_obs_slot, 0, O - 1).long()
+
     def seg_pt(vals):
+        if pt_obs_slot is None:
+            return vals.new_zeros((P,) + vals.shape[1:]).index_add_(
+                0, seg_pt_ids, vals)
         g = vals[slot_idx]
         mask = slot_ok.reshape(slot_ok.shape + (1,) * (vals.dim() - 1))
         return torch.sum(torch.where(mask, g, torch.zeros_like(g)), dim=1)
 
     def per_obs_kf(vals):
+        if block_n is None:
+            return vals[prob.obs_kf.long()]
         if comm is not None:
             vals = vals[comm.kf_ids]
         return vals[:, None].expand((Kl, block_n) + vals.shape[1:]) \
             .reshape((-1,) + vals.shape[1:])
 
     def local(kf_pose):
-        return kf_pose if comm is None else kf_pose[comm.kf_ids]
+        return (kf_pose if comm is None or block_n is None
+                else kf_pose[comm.kf_ids])
 
     def reduce(kf=(), pt=()):
         return (list(kf), list(pt)) if comm is None else \

@@ -3,7 +3,8 @@ sharded BA (tests/test_torch_parallel.py, chip_smoke.py; each a rank
 setup function for parallel/sharded_ba.py::spawn_sharded_global_ba,
 module level so that a spawned rank can import it), in the accuracy
 studies (tests/test_torch_studies*.py, chip_smoke.py) and in the
-retention probes (tests/test_torch_probes*.py, chip_smoke.py)."""
+retention probes (tests/test_torch_probes*.py, chip_smoke.py) and in the
+stage timers (tests/test_torch_stages.py, chip_smoke.py)."""
 
 
 def skip_point_reduce(rank: int, world: int):
@@ -111,3 +112,69 @@ def symmetric_motion_level_window():
                 (last_level + 1).to(torch.int32))
     tracking._motion_level_bounds = symmetric
     return lambda: setattr(tracking, "_motion_level_bounds", bounds)
+
+
+def scatter_points_over_keyframes():
+    """ba_iterate's scatter form sums the per-point terms over obs_kf
+    instead of obs_pt (solvers/ba.py::_scatter_rows): the BA profile's
+    fault. Returns the function that undoes the patch."""
+    from object_slam_tpu_torch.solvers import ba
+    rows = ba._scatter_rows
+
+    def over_keyframes(prob):
+        kf, _ = rows(prob)
+        return kf, kf
+    ba._scatter_rows = over_keyframes
+    return lambda: setattr(ba, "_scatter_rows", rows)
+
+
+def stage_map_before_last_frame(n_frames: int):
+    """The KITTI stage timer's fault: its stages run on the map from before
+    the n_frames-th track_stereo call. Returns (hook, swap): hook, an
+    on_system hook for diag_kitti_stages_torch.drive that keeps a copy of
+    the map before that call (the drive itself unchanged); swap(state),
+    the drive's state with its map replaced by that copy."""
+    kept = {}
+
+    def hook(sys_):
+        track = sys_.track_stereo
+        calls = []
+
+        def wrapped(*a, **kw):
+            calls.append(None)
+            if len(calls) == n_frames:
+                kept["map"] = type(sys_.map)(*[t.clone() for t in sys_.map])
+            return track(*a, **kw)
+        sys_.track_stereo = wrapped
+
+    def swap(state):
+        return dict(state, map=kept["map"])
+    return hook, swap
+
+
+def inverted_keyframe_decision():
+    """The tracking step's keyframe decision negated (slam/tracking.py::
+    kf_decision), so that a tracked frame's need_kf and need_kf_hard
+    flip: the KITTI stage timer's fault on its fused stage. Returns the
+    function that undoes the patch."""
+    from object_slam_tpu_torch.slam import tracking
+    decide = tracking.kf_decision
+    tracking.kf_decision = lambda *a, **kw: ~decide(*a, **kw)
+    return lambda: setattr(tracking, "kf_decision", decide)
+
+
+def packed_semantic_bytes(fullpipe):
+    """diag_fullpipe_torch.frame_bytes counts the semantic arrays after
+    bit-packing the masks (the form they travel in), not as the reference
+    counts them: the full-pipeline timer's fault. Returns the function
+    that undoes the patch."""
+    import numpy as np
+    from object_slam_tpu_torch.semantic.object2d import pack_mask_bits
+    frame_bytes = fullpipe.frame_bytes
+
+    def packed(d16, rgb8, sem_arrays):
+        sem = (pack_mask_bits(sem_arrays[0]),) + tuple(sem_arrays[1:])
+        _, depth_b, rgb_b = frame_bytes(d16, rgb8, sem_arrays)
+        return sum(np.asarray(a).nbytes for a in sem), depth_b, rgb_b
+    fullpipe.frame_bytes = packed
+    return lambda: setattr(fullpipe, "frame_bytes", frame_bytes)

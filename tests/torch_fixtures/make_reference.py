@@ -85,6 +85,15 @@ inputs and outputs are recorded here once and committed:
   full precision, each with pinned one-ulp noise runs (level_noise and
   pinned_noise): at small_cfg and stereo_cfg's street (10 frames), and at
   TUM VGA (30 frames) and the 24-frame KITTI street (12 frames).
+* ``stages.npz`` (``stages[:<part>]``, parts under build/stages/, then
+  ``stages:merge``): what the stage timers of scripts/ compute, for the
+  port's timers to be held to: diag_ba_profile.py's seven ba_iterate
+  variants on its problem at 6 x 64 / 256 and at its own size (40 x
+  2048 / 8192), diag_kitti_stages.py's eleven stages after 12 frames of
+  stereo_cfg's street and of make_synth_kitti.py's drive (counts, each
+  with 4 pinned one-ulp noise runs), diag_fullpipe.py's 16 frames at
+  small_cfg and tum_rgbd() (flags, poses, keyframes, the bytes line, the
+  profiler's spans).
 
 Run from the repository root (the parts named; with no argument, the
 slices' parts listed in main()):
@@ -98,6 +107,7 @@ slices' parts listed in main()):
         [loop_small_noise[:noise<k>|:merge]] [experiments]
         [experiments_tiny] [xla_resize] [vocab] [vocab_counts] [brief]
         [harvest_cpu[:brief]] [studies[:<part>]] [probes[:<part>]]
+        [stages[:<part>]]
 
 slice1, objects and tum_vga use ``pipelined_readback=False``. The rendered
 inputs' checksums are stored so that the tests can prove they re-render
@@ -4726,6 +4736,331 @@ def record_probes(part):
     else:
         record_probe_part(part)
 
+# ---------------------------------------------------------------------------
+# the single-card stage timers of scripts/ (diag_ba_profile.py,
+# diag_kitti_stages.py, diag_fullpipe.py): what each timed call computes,
+# at full precision, for the port's scripts to be held to (their outputs
+# are milliseconds)
+# ---------------------------------------------------------------------------
+
+OUT_STAGES = os.path.join(HERE, "stages.npz")
+STAGES_DIR = os.path.join(HERE, "..", "..", "build", "stages")
+# diag_ba_profile.py's problem: the CPU tests' size and the script's own
+STAGE_BA_SIZES = {"small": (6, 64, 256), "full": (40, 2048, 8192)}
+STAGE_BA_NOISE = 4
+# diag_kitti_stages.py's 12 frames: stereo_cfg's street (the CPU tests)
+# and the first 12 of make_synth_kitti.py's 24 (chip_smoke.py's third
+# process writes that directory with make_synth_kitti_torch.py)
+STAGE_KITTI_FRAMES, STAGE_KITTI_DRIVE = 12, 24
+STAGE_KITTI_NOISE = 4
+# diag_fullpipe.py's 16 frames at small_cfg and at tum_rgbd()
+STAGE_FULLPIPE_FRAMES = 16
+
+
+def stage_path(part):
+    os.makedirs(STAGES_DIR, exist_ok=True)
+    return os.path.join(STAGES_DIR, part.replace(":", "_") + ".npz")
+
+
+def stage_script(name):
+    """The port's script scripts/<name>.py (its numpy problem builder and
+    census, which define what is recorded)."""
+    sys.path.insert(0, os.path.join(HERE, "..", "..", "scripts"))
+    import importlib
+    return importlib.import_module(name)
+
+
+def ba_profile_problem(K, Wtot, N, Lp):
+    """diag_ba_profile.py's problem, its lines verbatim: (BAProblem, slot
+    table, the numpy arrays)."""
+    O = Wtot * N
+    rng = np.random.RandomState(0)
+    pts = rng.uniform([-20, -5, 5], [20, 5, 60], (Lp, 3)).astype(np.float32)
+    poses = []
+    for i in range(Wtot):
+        T = np.eye(4, dtype=np.float32)
+        T[:3, 3] = [0.1 * i, 0, -0.5 * i]
+        poses.append(T)
+    poses = np.stack(poses)
+    fx, fy, cx, cy, bf = (float(K.fx), float(K.fy), float(K.cx),
+                          float(K.cy), float(K.bf))
+    obs_pt = rng.randint(0, Lp, (O,)).astype(np.int32)
+    obs_kf = np.repeat(np.arange(Wtot), N).astype(np.int32)
+    pw = pts[obs_pt]
+    pc = (poses[obs_kf, :3, :3] @ pw[..., None])[..., 0] + poses[obs_kf, :3, 3]
+    z = np.maximum(pc[:, 2], 0.1)
+    uv = np.stack([fx * pc[:, 0] / z + cx,
+                   fy * pc[:, 1] / z + cy], -1)
+    uv += rng.normal(0, 0.5, uv.shape)
+    ur = uv[:, 0] - bf / z
+    valid = (pc[:, 2] > 0.5) & (np.abs(uv[:, 0] - cx) < cx) \
+        & (np.abs(uv[:, 1] - cy) < cy)
+    valid = np.asarray(valid)
+    slot = np.full((Lp, Wtot), -1, np.int64)
+    for o in range(O):
+        if not valid[o]:
+            continue
+        p, w = obs_pt[o], obs_kf[o]
+        if slot[p, w] < 0:
+            slot[p, w] = o
+        else:
+            valid[o] = False
+    prob = BAProblem(
+        kf_pose=jnp.asarray(poses),
+        kf_fixed=jnp.zeros((Wtot,), bool).at[0].set(True),
+        kf_valid=jnp.ones((Wtot,), bool),
+        pt_xyz=jnp.asarray(pts + rng.normal(0, 0.05, pts.shape)
+                           .astype(np.float32)),
+        pt_valid=jnp.ones((Lp,), bool),
+        obs_kf=jnp.asarray(obs_kf), obs_pt=jnp.asarray(obs_pt),
+        obs_uv=jnp.asarray(uv.astype(np.float32)),
+        obs_ur=jnp.asarray(np.where(valid, ur, -1.0).astype(np.float32)),
+        obs_inv_sigma2=jnp.ones((O,)),
+        obs_valid=jnp.asarray(valid))
+    return prob, slot.astype(np.int32)
+
+
+def record_stage_ba(size, run):
+    """diag_ba_profile.py's seven variants on its problem at size: each
+    ba_iterate result (jitted, as the script calls it) as
+    stage_bands.ba_record keeps it. run "noise<k>":
+    the points' initial coordinates times (1 + u), u uniform in +-6e-8
+    (RandomState(k))."""
+    from object_slam_tpu.solvers.ba import _robust_cost, ba_iterate
+    import stage_bands
+    prof = stage_script("diag_ba_profile_torch")
+    cfg = SlamConfig.kitti_stereo()
+    K = Intrinsics.from_config(cfg.camera)
+    Wtot, N, Lp = STAGE_BA_SIZES[size]
+    prob, slot = ba_profile_problem(K, Wtot, N, Lp)
+    out = {"problem_hash": np.asarray(stage_bands.problem_hash(
+        {f: np.asarray(getattr(prob, f)) for f in BAProblem._fields},
+        slot))}
+    if run.startswith("noise"):
+        u = np.random.RandomState(int(run[len("noise"):])).uniform(
+            -6e-8, 6e-8, prob.pt_xyz.shape)
+        prob = prob._replace(pt_xyz=jnp.asarray(
+            (np.asarray(prob.pt_xyz) * (1.0 + u)).astype(np.float32)))
+    slot_j = jnp.asarray(slot)
+    for i, (name, blocked, with_slot, it, cg) in enumerate(prof.VARIANTS):
+        fn = jax.jit(lambda p, it=it, cg=cg, bn=N if blocked else None,
+                     sl=with_slot: ba_iterate(
+                         K, p, it, cg_iters=cg, block_n=bn,
+                         pt_obs_slot=slot_j if sl else None))
+        kf_pose, pt_xyz = fn(prob)
+        cost = float(_robust_cost(K, prob, kf_pose, pt_xyz, 5.991, 7.815,
+                                  lambda x: x, block_n=None))
+        rec = stage_bands.ba_record(np.asarray(prob.pt_xyz), kf_pose, pt_xyz,
+                                    cost)
+        for k, v in rec.items():
+            out[f"v{i}.{k}"] = v
+        print(f"stages:ba_{size}:{run} {name}: cost {cost:.6f}", flush=True)
+    return out
+
+
+def stage_kitti_dir(size):
+    """The KITTI directory the stage timer drives: size "small", the first
+    STAGE_KITTI_FRAMES frames of stereo_cfg's street written from the
+    reference's renders (datasets/kitti.py::write_sequence, as
+    probe_kitti_dir writes); "vga", make_synth_kitti_torch.py's
+    STAGE_KITTI_DRIVE frames (its files equal make_synth_kitti.py's,
+    held here to experiments.npz's digests). Returns (cfg, directory)."""
+    import subprocess
+    root = os.path.join(STAGES_DIR, f"kitti_{size}")
+    if size == "small":
+        cfg = stereo_cfg()
+        if not os.path.exists(os.path.join(root, "gt.txt")):
+            from object_slam_tpu_torch.datasets import kitti as tkitti
+            _, _, poses, frames = render_street("stereo", STAGE_KITTI_FRAMES)
+            frames = [(gl, gr, tuple(np.asarray(a) for a in sa))
+                      for gl, gr, sa in frames]
+            tkitti.write_sequence(root, poses, frames)
+        return cfg, root
+    cfg = SlamConfig.kitti_stereo()
+    seq = os.path.join(root, "kitti")
+    if not os.path.exists(os.path.join(seq, "gt.txt")):
+        subprocess.run([sys.executable, os.path.join(
+            HERE, "..", "..", "scripts", "make_synth_kitti_torch.py"),
+            "--out", seq, "--frames", str(STAGE_KITTI_DRIVE)], check=True)
+        want = json.loads(str(np.load(os.path.join(
+            HERE, "experiments.npz"))["synth_digests"]))
+        got = synth_digests(root)
+        bad = [k for k in want if k.startswith("kitti") and
+               want[k] != got.get(k)]
+        if bad:
+            raise SystemExit(f"stages: {len(bad)} KITTI files differ from "
+                             f"make_synth_kitti.py's: {bad[:5]}")
+    return cfg, seq
+
+
+def record_stage_kitti(size, run):
+    """diag_kitti_stages.py's drive (the first STAGE_KITTI_FRAMES frames,
+    objects on, inline mapping, PIL's float images) and its eleven stages,
+    each called once with the script's arguments, counted by the port
+    script's stage_counts; run "noise<k>": pinned_noise with main's
+    keyframe decisions."""
+    from object_slam_tpu.datasets import kitti
+    from object_slam_tpu.slam import local_mapping, map_ops
+    from object_slam_tpu.slam.map_state import (covisibility,
+                                                recompute_point_stats)
+    from PIL import Image
+    st = stage_script("diag_kitti_stages_torch")
+    cfg, seq = stage_kitti_dir(size)
+    noise = None
+    if run.startswith("noise"):
+        main = np.load(stage_path(f"kitti_{size}:main"))
+        noise = (int(run[len("noise"):]),
+                 [int(x) for x in main["kf_frames"]])
+    Recorded, _ = recording_systems(noise=noise)
+    frames = kitti.load_sequence(seq)[:STAGE_KITTI_FRAMES]
+    sys_ = Recorded(cfg, enable_objects=True, async_mapping=False)
+    for i, fr in enumerate(frames):
+        gl = np.asarray(Image.open(fr.left_path), np.float32)
+        gr = np.asarray(Image.open(fr.right_path), np.float32)
+        rgb = np.stack([gl] * 3, -1)
+        sa = kitti.load_semantics(os.path.join(seq, "semantic"), fr.index,
+                                  cfg)
+        f = sys_.track_stereo(jnp.asarray(gl), jnp.asarray(gr),
+                              jnp.asarray(rgb), sa, timestamp=fr.timestamp)
+    m = sys_.map
+    frame, last = f, sys_.last_frame
+    kfi = jnp.int32(max(sys_.last_kf_id, 0))
+    kf_id = int(kfi)
+    spawn = frame.valid & (frame.depth > 0)
+    calls = {
+        "build_stereo": lambda: sys_.builder.build_stereo(
+            jnp.asarray(gl), jnp.asarray(gr), jnp.asarray(rgb),
+            sys_.builder.pack_sem_arrays(sa), 0.0),
+        "fused": lambda: sys_._jit_fused(
+            m, frame, last, jnp.eye(4), jnp.int32(max(sys_.last_kf_id, 0)),
+            jnp.int32(1), jnp.int32(11), jnp.int32(500)),
+        "insert": lambda: sys_._jit_insert(m, frame, frame.Tcw, frame.kp_pt,
+                                           spawn, np.int32(11)),
+        "mapping": lambda: sys_._jit_mapping(m, kfi),
+        "covisibility": lambda: jax.jit(covisibility)(m),
+        "recompute_stats": lambda: jax.jit(recompute_point_stats)(m),
+        "cull_points": lambda: jax.jit(lambda mm, k: map_ops.cull_points(
+            mm, k, recency_scope=True))(m, kfi),
+        "triangulate": lambda: jax.jit(
+            lambda mm, k: map_ops.triangulate_new_points(
+                mm, k, n_neighbors=5, K=sys_.K,
+                inv_sigma2_lvl=sys_.inv_sigma2,
+                scale_factors=sys_.scale_factors))(m, kfi),
+        "fuse": lambda: jax.jit(lambda mm, k: map_ops.fuse_into_neighbors(
+            mm, k, n_neighbors=5, K=sys_.K, scale_factors=sys_.scale_factors,
+            inv_sigma2_lvl=sys_.inv_sigma2))(m, kfi),
+        "local_ba": lambda: jax.jit(lambda mm, k: local_mapping.run_local_ba(
+            K=sys_.K, m=mm, kf_id=k, window=cfg.caps.local_window_kf,
+            n_fixed=8, inv_sigma2_lvl=sys_.inv_sigma2))(m, kfi),
+        "cull_kfs": lambda: jax.jit(lambda mm, k: map_ops.cull_keyframes(
+            mm, k, scale_condition=False, n_levels=cfg.orb.n_levels))(m, kfi),
+    }
+    rec = {"map": st.map_counts(m)}
+    for name in st.STAGES:
+        out = calls[name]()
+        # the insert handle records the frame id: drop this call's
+        if name == "insert":
+            sys_.rec_inserts.pop()
+        rec[name] = st.stage_counts(name, out, m, kf_id)
+        print(f"stages:kitti_{size}:{run} {name}: {rec[name]}", flush=True)
+    sys.path.insert(0, HERE)
+    import probe_bands
+    out = {"kf_frames": np.asarray(sorted(set(sys_.rec_inserts)), np.int32),
+           "gray_sum": np.asarray(float(np.sum(gl, dtype=np.float64)))}
+    probe_bands.put(out, "counts", [rec])
+    sys_.shutdown()
+    return out
+
+
+def record_stage_fullpipe(size):
+    """diag_fullpipe.py's loop (its scene and frames; at "vga" the depth
+    and rgb cast to float32 first, as chip_smoke.py's main process holds
+    its renders) with the profiler on: the bytes line, the profiler's span
+    names and calls, then, the last lagged readback resolved, every
+    frame's pose and flag and the keyframes' frames."""
+    cfg = small_cfg().replace(tracking=TrackingConfig()) \
+        if size == "small" else SlamConfig.tum_rgbd()
+    fp = stage_script("diag_fullpipe_torch")
+    scene = SyntheticScene.make(cfg, seed=3, n_objects=3)
+    for b in scene.boxes:
+        b['size'] = 0.9
+    poses = orbit_poses(STAGE_FULLPIPE_FRAMES, step=0.01)
+    frames, gray_sums = [], []
+    for T in poses:
+        gray, depth, rgb, sem = scene.render_rgbd(T)
+        if size == "vga":
+            depth = np.asarray(depth).astype(np.float32)
+            rgb = np.asarray(rgb).astype(np.float32)
+        gray_sums.append(float(np.sum(np.asarray(gray, np.float32),
+                                      dtype=np.float64)))
+        frames.append(fp.to_inputs(cfg, depth, rgb, scene.sem_arrays(
+            sem, cfg.semantic.max_instances)))
+    sys_ = SlamSystem(cfg, enable_objects=True)
+    sys_.profiler.enabled = True
+    for i, (d16, rgb8, sa) in enumerate(frames):
+        f = sys_.builder.build_rgbd(None, jnp.asarray(d16),
+                                    jnp.asarray(rgb8), sa, i / 30.0)
+        jnp.asarray(f.desc).block_until_ready()
+        sys_._host_ts = i / 30.0
+        out = sys_._track(f)
+        jnp.asarray(out.Tcw).block_until_ready()
+    stats = sys_.profiler.stats()
+    sys_._resolve_fused_pending()
+    m = sys_.map
+    kv = np.asarray(m.kf_valid)
+    rec = {"bytes": np.asarray(fp.frame_bytes(*frames[0]), np.int64),
+           "span_names": np.asarray(sorted(stats)),
+           "span_calls": np.asarray([stats[k]["n"] for k in sorted(stats)],
+                                    np.int64),
+           "Tcw": np.stack([r.Tcw for r in sys_.trajectory]).astype(
+               np.float32),
+           "tracked": np.asarray([r.tracked for r in sys_.trajectory]),
+           "kf_frames": np.asarray(sorted(
+               int(x) for x in np.asarray(m.kf_frame_id)[kv]), np.int32),
+           "gray_sums": np.asarray(gray_sums),
+           "gt_Tcw": np.stack(poses).astype(np.float32)}
+    print(f"stages:fullpipe_{size}: tracked {int(rec['tracked'].sum())} of "
+          f"{len(rec['tracked'])}, keyframes {rec['kf_frames'].tolist()}, "
+          f"spans {dict(zip(rec['span_names'].tolist(), rec['span_calls'].tolist()))}",
+          flush=True)
+    return rec
+
+
+STAGE_PARTS = ([f"ba_{s}:{r}" for s in STAGE_BA_SIZES
+                for r in ["main"] + [f"noise{k}"
+                                     for k in range(STAGE_BA_NOISE)]]
+               + [f"kitti_{s}:{r}" for s in ("small", "vga")
+                  for r in ["main"] + [f"noise{k}"
+                                       for k in range(STAGE_KITTI_NOISE)]]
+               + ["fullpipe_small:main", "fullpipe_vga:main"])
+
+
+def record_stages(part):
+    """make_reference.py stages:<part>: one run, saved under build/stages/
+    (run a size's main before its noise runs); stages:merge collects them
+    into stages.npz under <name>.<run>."""
+    if part != "merge":
+        name, run = part.split(":")
+        kind, size = name.split("_")
+        if kind == "ba":
+            out = record_stage_ba(size, run)
+        elif kind == "kitti":
+            out = record_stage_kitti(size, run)
+        else:
+            out = record_stage_fullpipe(size)
+        np.savez_compressed(stage_path(part), **out)
+        print(f"stages:{part} written", flush=True)
+        return
+    out = {}
+    for p in STAGE_PARTS:
+        name, run = p.split(":")
+        with np.load(stage_path(p)) as d:
+            for k in d.files:
+                out[f"{name}.{run}.{k}"] = d[k]
+    np.savez_compressed(OUT_STAGES, **out)
+    print(f"wrote {OUT_STAGES}: {os.path.getsize(OUT_STAGES) / 1e3:.1f} kB, "
+          f"{len(out)} arrays", flush=True)
+
 
 def main():
     parts = sys.argv[1:] or ["slice1", "objects", "tum_vga", "pipelined",
@@ -4847,6 +5182,13 @@ def main():
                 record_probes(part)
         elif p.startswith("probes:"):
             record_probes(p.split(":", 1)[1])
+    for p in parts:
+        # stages: every part in turn, then merge; stages:<part> one of them
+        if p == "stages":
+            for part in STAGE_PARTS + ["merge"]:
+                record_stages(part)
+        elif p.startswith("stages:"):
+            record_stages(p.split(":", 1)[1])
     for p in parts:
         # loop_small_noise: every part in turn; loop_small_noise:<part>
         # one of them (noise<k>, merge), for parallel runs
