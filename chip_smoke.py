@@ -230,9 +230,28 @@ Phases, each fatal on failure:
      with its keyframe decision negated, must miss); and in
      11's BRIEF harvest, the first render's IC angles from orb_describe
      held to 2's describe tolerance (offset by one bin, they must miss);
+ 11d. the multi-device scripts and the op-level stage trace of slice 14:
+     in a fifth process, started beside the others (it ends first),
+     scripts/ab_async_device_torch.py
+     at --scale 2 (320x240, objects on) on 16 frames of its circuit
+     (phase_async_device: orb_describe held at the circuit's shapes; sync,
+     async, and async through _AsyncMapping's second-device branch with
+     cuda:0 on both sides, ready() pinned, each held to async_device.npz
+     with multidevice_bands.py; the merge dropping the pass's result on
+     8 frames must miss; one unpinned async run printed), then
+     scripts/bench_ba_scaling_torch.py at the
+     reference's size (phase_ba_scaling: NCCL at the card count, 2 gloo
+     ranks on cuda:0, every rank bit-equal to rank 0 and within
+     the BA band of the one-process global_ba; a rank without the point
+     all-reduce must miss); in the third process after 11c's KITTI stage
+     timer, on its drive, scripts/diag_trace_stage_torch.py's three
+     stages traced under torch.profiler (phase_trace_stage: the build
+     stage lists one orb_describe launch, each stage's kernels sum to at
+     most its wall time);
  12. one JSON line of the kernels (orb_describe: launches from the main
      path of 5, host-in-the-loop, and per phase, with its KITTI-pair,
-     EuRoC-, corridor- and KITTI-probe-frame numbers; extract_patches: its
+     EuRoC-, corridor-, KITTI-probe-frame and ab-circuit numbers;
+     extract_patches: its
      launches on the BRIEF
      harvest of 11 and its numbers at the harvest's shapes, one render's
      launch beside the 8 per-level launches it took before, with the
@@ -4240,11 +4259,12 @@ def phase_train_brief(card):
 
 def tools_child_main(out_json: str):
     """The third process: the generators, the battery, the KITTI stage
-    timer (phase_stage_kitti), the vocabulary trainer and the
-    BRIEF-pattern learner on the card, then the main path's kidnap
-    (phase_kidnap); the launches by phase, the phase seconds, the timings,
-    the stage timer's ms and extract_patches' row at the harvest's shapes
-    written to out_json."""
+    timer (phase_stage_kitti) and the op-level trace on its drive
+    (phase_trace_stage), the vocabulary trainer and the BRIEF-pattern
+    learner on the card, then the main path's kidnap (phase_kidnap); the
+    launches by phase, the phase seconds, the timings, the stage timer's
+    ms, the traced stages and extract_patches' row at the harvest's
+    shapes written to out_json."""
     import torch
     from object_slam_tpu_torch.ops import build
     if not torch.cuda.is_available():
@@ -4256,8 +4276,14 @@ def tools_child_main(out_json: str):
     exp = phase_timed("experiments", phase_experiments, root, card)
     by_phase.update({f"experiments_{k}": v for k, v in exp.items()})
     # the KITTI stage timer of slice 13 on the battery's KITTI directory
-    by_phase["stage_kitti"], kitti_stage_ms = phase_timed(
-        "stage_kitti", phase_stage_kitti, card, root)
+    by_phase["stage_kitti"], kitti_stage_ms, kitti_state = phase_timed(
+        "stage_kitti", phase_stage_kitti, card, root, keep=True)
+    # the op-level stage trace of slice 14 on that drive
+    try:
+        trace = phase_timed("trace_stage", phase_trace_stage, card,
+                            kitti_state)
+    finally:
+        kitti_state["sys"].shutdown()
     by_phase["train_vocab"], vocab_s = phase_timed(
         "train_vocab", phase_train_vocab, card)
     by_phase["train_brief"], brief_s, brief_row = phase_timed(
@@ -4272,7 +4298,7 @@ def tools_child_main(out_json: str):
         json.dump({"by_phase": by_phase, "phase_s": PHASE_S,
                    "vocab_s": vocab_s, "brief_s": brief_s,
                    "brief_row": brief_row,
-                   "kitti_stage_ms": kitti_stage_ms}, f)
+                   "kitti_stage_ms": kitti_stage_ms, "trace": trace}, f)
 
 
 # ---------------------------------------------------------------------------
@@ -5530,7 +5556,7 @@ def phase_stage_ba_profile(card):
             for name in names}
 
 
-def phase_stage_kitti(card, root):
+def phase_stage_kitti(card, root, keep=False):
     """scripts/diag_kitti_stages_torch.py at KITTI width on the first
     STAGE_KITTI_FRAMES frames of the directory make_synth_kitti_torch.py
     wrote (phase_synth_dirs), the reference run's keyframe decisions
@@ -5544,7 +5570,8 @@ def phase_stage_kitti(card, root):
     frame (faults.stage_map_before_last_frame), and the fused stage with
     the keyframe decision negated (faults.inverted_keyframe_decision),
     each of which must miss. Returns the drive's launches and {stage:
-    ms}."""
+    ms}, and with keep the drive's state too (its system not shut down:
+    phase_trace_stage traces on it)."""
     import torch
     from object_slam_tpu_torch.config import SlamConfig
     from object_slam_tpu_torch.datasets import kitti
@@ -5585,7 +5612,8 @@ def phase_stage_kitti(card, root):
         finally:
             undo()
     finally:
-        state["sys"].shutdown()
+        if not keep:
+            state["sys"].shutdown()
     dec = state["decisions"]
     differ = [f for f in sorted(dec) if dec[f][0] != (f in set(kfs))]
     bad = sb.kitti_misses(res, fx, "vga")
@@ -5616,11 +5644,251 @@ def phase_stage_kitti(card, root):
     if not {"fused.need_kf", "fused.need_kf_hard"} <= set(fault_kf):
         fail("stage kitti: the fused stage with the keyframe decision "
              "negated passes")
-    return launches, {k: v["ms"] for k, v in res["stages"].items()}
+    ms = {k: v["ms"] for k, v in res["stages"].items()}
+    return (launches, ms, state) if keep else (launches, ms)
+
+
+
+# ---------------------------------------------------------------------------
+# the multi-device scripts and the op-level stage trace (slice 14)
+# ---------------------------------------------------------------------------
+
+ASYNC_DEVICE_REF = os.path.join(FIXTURES, "async_device.npz")
+# scripts/ab_async_device_torch.py's arms on the first ASYNC_DEVICE_FRAMES
+# of its 120-frame circuit (a depth cut for the time limit: at 40 frames,
+# the fault and the unpinned run at 16, the script read 1135 s; the 120
+# frames ran alone on the card, PERF.md section 5); the second-device
+# branch on the same frames; the planted fault and the unpinned run on
+# the first ASYNC_DEVICE_SHORT (each held to the reference's run of those
+# frames)
+ASYNC_DEVICE_FRAMES = 16
+ASYNC_DEVICE_SHORT = 8
+# scripts/bench_ba_scaling_torch.py at the reference's size with
+# SCALING_REPS timed runs per world size (cut from its 5)
+SCALING_REPS = 2
+TRACE_STAGES = ("fused", "mapping", "build")
+TRACE_ATTEMPTS = 3
+
+
+def multidevice_bands_module():
+    if FIXTURES not in sys.path:
+        sys.path.insert(0, FIXTURES)
+    import multidevice_bands
+    return multidevice_bands
+
+
+def phase_async_device(card):
+    """scripts/ab_async_device_torch.py at --scale 2 (320x240, 500
+    features, objects on) on the first ASYNC_DEVICE_FRAMES frames of its
+    circuit: one orb_describe launch at the circuit's shapes (frame 0's
+    detected keypoints) held to its plain version (phase_describe's
+    tolerance); sync, then async (a side stream of this card; cuda:1 with
+    a second card), ready() pinned to "a pass is pending", each held to
+    the JAX CPU run of the same frames (async_device.npz, its async pass
+    on a second XLA device; multidevice_bands.arm_checks: flags, keyframe
+    frames, lags, dispatches and merges as a recorded run has them,
+    records, ATE and points within 2x its one-ulp noise spread or the
+    floors); the async arm again through _AsyncMapping's second-device
+    branch with cuda:0 on both sides (the copies made), held the same; on
+    the first ASYNC_DEVICE_SHORT frames the merge throwing the pass's
+    result away (faults.drop_async_result), which must miss, and one
+    unpinned async run, printed. One orb_describe per frame asserted in
+    every run. Returns (launches by run, orb_describe's row at these
+    shapes, the runs' JSON)."""
+    import contextlib
+    import torch
+    from object_slam_tpu_torch.features.extractor import OrbExtractor
+    sys.path.insert(0, FIXTURES)
+    import faults
+    mb = multidevice_bands_module()
+    ab = script_module("ab_async_device_torch")
+    cfg = script_module("ab_deviations_torch").build_cfg(2)
+    args = ab.parse_args(["--device", "cuda"])
+    fx = np.load(ASYNC_DEVICE_REF)
+    n, short = ASYNC_DEVICE_FRAMES, ASYNC_DEVICE_SHORT
+    t0 = time.perf_counter()
+    poses, frames, sems = ab.inputs(cfg, args, n)
+    render_s = time.perf_counter() - t0
+    sums = [float(np.sum(g, dtype=np.float64)) for g, _, _, _ in frames]
+    if not np.allclose(sums, fx[f"{n}.gray_sum"], rtol=1e-12, atol=0):
+        fail("async device: the rendered frames differ from the reference "
+             "run's")
+    ex = OrbExtractor(cfg, device="cuda")
+    img = torch.from_numpy(frames[0][0].astype(np.float32)).cuda()
+    levels, _, cy, cx, counts = ex._detect(img)
+    corners, start = [], 0
+    for l, k in counts:
+        corners.append((l, cy[start:start + k], cx[start:start + k]))
+        start += k
+    row = phase_describe(ex, levels, corners, tag="ab circuit 320x240",
+                         timed=False)
+    two = torch.cuda.device_count() > 1
+    placement = {"sync": "cuda:0 inline",
+                 "async_dev1": "cuda:1" if two else "cuda:0 side stream",
+                 "async_cross": "cuda:0 (copied)"}
+    launches, out, bad = {}, {}, []
+
+    def arm(name, flag, k, on_system=None, pinned=True):
+        torch.cuda.synchronize()
+        zero_counts()
+        with ab.pinned_ready() if pinned else contextlib.nullcontext():
+            res, det = ab.run_arm(cfg, poses[:k], frames[:k], sems[:k],
+                                  flag, "cuda", on_system)
+        torch.cuda.synchronize()
+        launches[name] = read_counts(f"async device {name}", k)
+        out[name] = res
+        return res, det
+
+    def held(name, ref_arm, k, res, det):
+        checks = mb.arm_checks(fx, k, ref_arm, res, det)
+        print(f"async device {name} [{card}]: {json.dumps(res)}; keyframes "
+              f"at {det['inserts']}; " + "; ".join(
+                  f"{w} {g if not isinstance(g, list) else ''} "
+                  f"({'held' if ok else 'missed'}, limit {lim})"
+                  for w, g, _, lim, ok in checks), flush=True)
+        return mb.misses(checks)
+
+    for name, flag in ab.ARMS:
+        res, det = arm(name, flag, n)
+        bad += [f"{name}: {m}" for m in held(name, name, n, res, det)]
+    res, det = arm("async_cross", True, n, ab.second_device)
+    bad += [f"second-device branch: {m}"
+            for m in held("async_cross", "async_dev1", n, res, det)]
+    for name, res in out.items():
+        want_dev = "dev1" if name == "async_dev1" and two else "dev0"
+        if (res["mapping_placement"], res["mapping_device"]) != (
+                placement[name], want_dev):
+            bad.append(f"{name}: mapping on {res['mapping_placement']} / "
+                       f"{res['mapping_device']}, expected "
+                       f"{placement[name]} / {want_dev}")
+    res, det = arm("async_fault", True, short, faults.drop_async_result)
+    caught = mb.misses(mb.arm_checks(fx, short, "async_dev1", res, det))
+    res, _ = arm("async_unpinned", True, short, pinned=False)
+    print(f"async device [{card}]: {n} frames rendered in {render_s:.1f} s; "
+          f"the pass's result dropped at the merge misses {caught[:4]}; "
+          f"unpinned async over {short} frames {json.dumps(res)}",
+          flush=True)
+    if bad:
+        fail("async device: " + "; ".join(bad))
+    if not caught:
+        fail("async device: the merge that drops the pass's result passes "
+             "every check")
+    return launches, row, out
+
+
+def phase_ba_scaling(card):
+    """scripts/bench_ba_scaling_torch.py at the reference's size (64
+    keyframes, 8192 points, 131,072 observations, 10 iterations) with
+    SCALING_REPS timed runs after a warm-up: NCCL at the card count (world
+    size 1 in this process), then 2 gloo ranks on cuda:0 (their rate
+    printed against NCCL world size 1's); every rank bit-equal to rank 0
+    and each world size within the
+    BA band (multidevice_bands.BA_POSE_TOL / BA_POINT_TOL) of the
+    one-process global_ba on the same problem; rank 1 without the
+    per-point all-reduce (faults.skip_point_reduce) at world size 2 must
+    miss. Prints the script's JSON lines; returns them."""
+    import torch
+    from object_slam_tpu_torch import interop
+    from object_slam_tpu_torch.solvers.ba import global_ba
+    sys.path.insert(0, FIXTURES)
+    import faults
+    mb = multidevice_bands_module()
+    bsc = script_module("bench_ba_scaling_torch")
+    args = bsc.parse_args(["--reps", str(SCALING_REPS)])
+    K, arrays = bsc.problem(args.kf, args.pts)
+    prob = interop.ba_problem_from_numpy(arrays, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kf, pt = global_ba(K, prob, args.iters, block_n=args.pts // 4)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) * 1e3
+    single = {"kf_pose": kf.cpu().numpy(), "pt_xyz": pt.cpu().numpy()}
+    lines, bad = [], []
+    log = []
+    for dev, sizes in (("cuda", None), ("cuda:0", [2])):
+        a = bsc.parse_args(["--reps", str(SCALING_REPS), "--device", dev])
+        got, results = bsc.run(a, sizes=sizes, log=log.append)
+        lines += got
+        for world, outs in results.items():
+            checks = mb.scaling_checks(outs, single, tag="against the "
+                                       "one-process global_ba")
+            log.append(f"  {dev} x{world}: " + "; ".join(
+                f"{c[0]} {c[1]} (limit {c[2]})" for c in checks))
+            bad += [f"{dev} x{world}: {c[0]} {c[1]} (limit {c[2]})"
+                    for c in checks if not c[3]]
+    a = bsc.parse_args(["--reps", "1", "--device", "cuda:0"])
+    _, fres = bsc.run(a, sizes=[2], setup=faults.skip_point_reduce,
+                      log=lambda s: None)
+    caught = [c[0] for c in mb.scaling_checks(fres[2], single)
+              if not c[3]]
+    nccl1 = lines[0]["ba_iters_per_s"]
+    print(f"BA scaling [{card}]: one-process global_ba {single_ms:.1f} ms; "
+          + "\n".join(log) + f"\n  gloo x2 on one card against NCCL x1: "
+          f"efficiency {lines[-1]['ba_iters_per_s'] / (2 * nccl1):.3f}"
+          f"\n  rank 1 without the point all-reduce misses {caught}",
+          flush=True)
+    if bad:
+        fail("BA scaling: " + "; ".join(bad))
+    if not caught:
+        fail("BA scaling: a rank without the point all-reduce passes")
+    return lines
+
+
+def phase_trace_stage(card, state):
+    """scripts/diag_trace_stage_torch.py's three stages (fused, mapping,
+    build) on the KITTI stage timer's drive (phase_stage_kitti's 12
+    frames), the mapping flushed as the script does: each stage warmed
+    once and traced once under torch.profiler into build/trace_stage/
+    <stage> (a trace holding no kernel event is taken again, up to
+    TRACE_ATTEMPTS times), its top rows printed through
+    prof_ops_torch.top_ops; the build stage's rows list orb_describe's
+    kernel with one launch per traced call; every stage's summed kernel ms
+    at most the traced call's wall ms. Returns {stage: {"wall_ms",
+    "kernel_ms", "kernels", "top"}}."""
+    import shutil
+    ts = script_module("diag_trace_stage_torch")
+    po = script_module("prof_ops_torch")
+    st = ts.flushed(state)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "trace_stage")
+    out, bad = {}, []
+    for stage in TRACE_STAGES:
+        d = os.path.join(root, stage)
+        for attempt in range(TRACE_ATTEMPTS):
+            shutil.rmtree(d, ignore_errors=True)
+            wall_ms = ts.trace_stage(st, stage, d)
+            if any(e.get("cat") == "kernel" for e in
+                   po.load_events(po.newest_trace(d))):
+                break
+        else:
+            fail(f"trace stage {stage}: {TRACE_ATTEMPTS} traces without a "
+                 f"kernel event")
+        rows = po.top_ops(d, None)
+        kernel_ms = sum(r[0] for r in rows)
+        out[stage] = {"wall_ms": wall_ms, "kernel_ms": kernel_ms,
+                      "kernels": sum(r[1] for r in rows),
+                      "attempts": attempt + 1, "top": rows[:10]}
+        lines = []
+        po.print_rows(rows[:10], lines.append)
+        print(f"trace stage {stage} [{card}]: one call {wall_ms:.1f} ms, "
+              f"kernels {kernel_ms:.3f} ms over {out[stage]['kernels']} "
+              f"launches of {len(rows)} kernels; top 10:\n"
+              + "\n".join(lines), flush=True)
+        if kernel_ms > wall_ms:
+            bad.append(f"{stage}: kernels {kernel_ms} ms > wall {wall_ms}")
+        if stage == "build":
+            desc = [r for r in rows if "orb_describe_kernel" in r[2]]
+            if len(desc) != 1 or desc[0][1] != 1:
+                bad.append(f"build: orb_describe rows {desc}, expected one "
+                           f"launch")
+    if bad:
+        fail("trace stage: " + "; ".join(bad))
+    return out
 
 
 PHASE_S = {}
 MONO_ARG = "--mono-phases"
+MULTI_ARG = "--multidevice-phases"
 
 
 def kitti_phases(by_phase, card):
@@ -5715,9 +5983,33 @@ def mono_child_main(out_json: str):
                    "ba_ms": ba_ms}, f)
 
 
+def multidevice_child_main(out_json: str):
+    """The fifth process: ab_async_device_torch.py and
+    bench_ba_scaling_torch.py of slice 14 (phase_async_device,
+    phase_ba_scaling) on the card; the launches by phase, the phase
+    seconds, orb_describe's row at the ab circuit's shapes and the
+    scripts' JSON written to out_json."""
+    import torch
+    from object_slam_tpu_torch.ops import build
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    build.load_all(KERNELS)
+    card = card_line()
+    ab_launches, ab_row, ab_runs = phase_timed("async_device",
+                                               phase_async_device, card)
+    scaling_lines = phase_timed("ba_scaling", phase_ba_scaling, card)
+    with open(out_json, "w") as f:
+        json.dump({"by_phase": {f"async_device_{k}": v
+                                for k, v in ab_launches.items()},
+                   "phase_s": PHASE_S,
+                   "ab_row": {k: ab_row[k] for k in (
+                       "max_abs_err", "bound_ms", "bound_by")},
+                   "ab_runs": ab_runs, "scaling_lines": scaling_lines}, f)
+
+
 def start_child(arg: str = MONO_ARG, stem: str = "chip_smoke_mono"):
-    """Start this script with ``arg`` (mono_child_main or
-    tools_child_main) in another process on the same card (the card is
+    """Start this script with ``arg`` (mono_child_main, tools_child_main,
+    studies_child_main or multidevice_child_main) in another process on the same card (the card is
     idle most of the time in every phase: the port is bound by host
     dispatch), its output to build/<stem>.log; it is killed if this
     process exits first."""
@@ -5787,6 +6079,8 @@ def main():
         return tools_child_main(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == STUDIES_ARG:
         return studies_child_main(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == MULTI_ARG:
+        return multidevice_child_main(sys.argv[2])
     try:
         import torch
     except ImportError:
@@ -5809,10 +6103,12 @@ def main():
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     # mono at EuRoC width, localization mode, checkpoints, the EuRoC driver
     # and KITTI run in a second process beside this one's phases, the
-    # offline tools in a third
+    # offline tools in a third, the studies in a fourth, the multi-device
+    # scripts in a fifth
     child = start_child()
     tools = start_child(TOOLS_ARG, "chip_smoke_tools")
     studies = start_child(STUDIES_ARG, "chip_smoke_studies")
+    multi = start_child(MULTI_ARG, "chip_smoke_multidevice")
 
     cfg = tum_cfg()
     t0 = time.perf_counter()
@@ -5869,6 +6165,9 @@ def main():
         studies, by_phase, "fourth (the accuracy studies: mapping variants, "
         "aliased corridor, semantic probes)", "fourth.")
     rows[1]["corridor"] = sres["corridor_row"]
+    mres = finish_child(multi, by_phase, "fifth (the multi-device scripts)",
+                        "fifth.")
+    rows[1]["ab_circuit"] = mres["ab_row"]
     # diag_loop_alias_torch.py's cost ratios: the corridor's rejections
     # against the circuit's accepted closure (its positive control)
     ratios = script_module("diag_loop_alias_torch").cost_ratios(
@@ -5897,7 +6196,8 @@ def main():
         for k in timed:
             if not (isinstance(row[k], float) and math.isfinite(row[k])):
                 fail(f"{row['name']} row field {k} is not a finite number")
-        for shape in ("kitti", "euroc", "tum_frame", "corridor"):
+        for shape in ("kitti", "euroc", "tum_frame", "corridor",
+                      "ab_circuit"):
             items = list(row.get(shape, {}).items())
             while items:
                 k, v = items.pop()
@@ -5911,6 +6211,13 @@ def main():
           f"{json.dumps(fullpipe_ms)}; diag_kitti_stages ms "
           f"{json.dumps(tres['kitti_stage_ms'])}; diag_ba_profile "
           f"{json.dumps(cres['ba_ms'])}", flush=True)
+    print(f"multi-device scripts [{card}]: ab_async_device "
+          f"{json.dumps(mres['ab_runs'])}; bench_ba_scaling "
+          f"{json.dumps(mres['scaling_lines'])}; diag_trace_stage (ms: one "
+          f"call, "
+          f"its kernels) " + json.dumps(
+              {k: [round(v["wall_ms"], 3), round(v["kernel_ms"], 3)]
+               for k, v in tres["trace"].items()}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all; "
           f"phases (s) {json.dumps(PHASE_S)}", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -23,3 +23,11 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("device='cuda' requested but no CUDA device is "
                            "available")
     return dev
+
+
+def indexed(device) -> torch.device:
+    """device with its card's index ("cuda" -> "cuda:<current>")."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -24,9 +24,11 @@ against the whole map (brute match, PnP RANSAC).
 
 With ``async_mapping=True`` each keyframe's local-mapping pass runs on a
 snapshot of the map in a worker thread with its own CUDA stream (the
-LocalMapping thread's analogue, ``_AsyncMapping``) while tracking goes on;
-the result is merged in at the next keyframe, when ready on the staged
-path, and at ``flush_mapping``.
+LocalMapping thread's analogue, ``_AsyncMapping``) while tracking goes on:
+on a second card when there is one (``cuda:1``, as the reference takes
+its second device), else on a side stream of the tracker's card; the
+result is merged in at the next keyframe, when ready on the staged path,
+and at ``flush_mapping``.
 
 With ``enable_loop=True`` every keyframe gets its BoW row and goes through
 loop detection (``loop.loop_closing.LoopCloser.on_keyframe``) once its
@@ -57,7 +59,7 @@ import numpy as np
 import torch
 
 from object_slam_tpu_torch.config import SlamConfig
-from object_slam_tpu_torch.device import resolve_device
+from object_slam_tpu_torch.device import indexed, resolve_device
 from object_slam_tpu_torch.features import matching
 from object_slam_tpu_torch.geometry import se3
 from object_slam_tpu_torch.loop import kfdb
@@ -105,17 +107,39 @@ class _AsyncMapping:
     pass's done event, then overlays what the tracker wrote meanwhile (the
     additive point counters and the object slabs). A failure in the worker
     is raised again by ``ready``, ``merge`` and ``join``. On the CPU the
-    same code runs without streams."""
+    same code runs without streams.
 
-    def __init__(self, run, device):
+    With ``device`` (the reference's second device) the pass runs there:
+    the worker copies the snapshot to ``device`` on a stream of that card
+    once the dispatch event has passed, and ``merge`` copies the result
+    back to ``home_device`` (on the side stream, behind the pass) before
+    the overlay; the snapshot's counters stay on the home device, as the
+    reference keeps them. The copies are made even when ``device`` is the
+    home device, so that this branch runs on one card and on the CPU.
+    Without ``device`` the pass stays on the home device (a side stream
+    of its card, or a thread on the CPU)."""
+
+    def __init__(self, run, home_device, device=None):
         self.run = run                  # run(m, kf_id, fast) -> MapState
-        self.device = device
-        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
-                       else None)
+        self.home = indexed(home_device)
+        self.device = None if device is None else indexed(device)
+        on = self.home if self.device is None else self.device
+        self.stream = torch.cuda.Stream(on) if on.type == "cuda" else None
         self._pool = None     # the worker thread, started at dispatch
         self.pending = None   # (future, snapshot, done event or None)
         self.pending_kf = -1  # the keyframe whose pass is in flight
         self.worker_ms: List[float] = []
+
+    @property
+    def placement(self) -> str:
+        """Where the pass runs: "<card> side stream", "cpu thread", or the
+        other device ("cuda:1"; "<device> (copied)" when the copies go to
+        the home device itself)."""
+        if self.device is None:
+            return (f"{self.home} side stream" if self.stream is not None
+                    else "cpu thread")
+        return str(self.device) + (" (copied)" if self.device == self.home
+                                   else "")
 
     @staticmethod
     def _merge_impl(res, m_now, s_vis, s_found, s_lc, s_lt):
@@ -139,14 +163,19 @@ class _AsyncMapping:
         t0 = time.perf_counter()
         with torch.profiler.record_function("local_mapping_async"):
             if self.stream is None:
-                res = self.run(m, kf_id, fast)
+                res = self.run(self._side(m), kf_id, fast)
             else:
-                with torch.cuda.stream(self.stream):
+                with _on_stream(self.stream):
                     self.stream.wait_event(start)
-                    res = self.run(m, kf_id, fast)
+                    res = self.run(self._side(m), kf_id, fast)
                     done.record(self.stream)
         self.worker_ms.append((time.perf_counter() - t0) * 1e3)
         return res
+
+    def _side(self, m):
+        """The snapshot as the pass reads it: copied to ``device`` when
+        there is one."""
+        return m if self.device is None else _copy_map(m, self.device)
 
     def dispatch(self, m: MapState, kf_id: int, fast: bool):
         """Start the pass for keyframe kf_id on the snapshot m (the map the
@@ -157,7 +186,7 @@ class _AsyncMapping:
         start = done = None
         if self.stream is not None:
             start, done = torch.cuda.Event(), torch.cuda.Event()
-            start.record(torch.cuda.current_stream(self.device))
+            start.record(torch.cuda.current_stream(self.home))
             for t in m:
                 t.record_stream(self.stream)
         if self._pool is None:
@@ -188,13 +217,27 @@ class _AsyncMapping:
         self.pending = None
         self.pending_kf = -1
         res = fut.result()
+        if self.device is not None:
+            res, done = self._home(res)
         if done is not None:
-            cur = torch.cuda.current_stream(self.device)
+            cur = torch.cuda.current_stream(self.home)
             cur.wait_event(done)
             for t in res:
                 t.record_stream(cur)
         return self._merge_impl(res, m_now, snap.pt_visible, snap.pt_found,
                                 snap.pt_label_cnt, snap.pt_label_tot)
+
+    def _home(self, res):
+        """The pass's result copied to the home device, and the event the
+        copy ends on (None on the CPU). On the card the copy is queued on
+        the side stream, behind the pass."""
+        if self.stream is None:
+            return _copy_map(res, self.home), None
+        with _on_stream(self.stream):
+            back = _copy_map(res, self.home)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        return back, done
 
     def join(self):
         """Wait for a pending pass and drop it (reset); a failed pass
@@ -211,6 +254,18 @@ class _AsyncMapping:
         if self._pool is not None:
             self._pool.shutdown(wait=True)
             self._pool = None
+
+
+def _copy_map(m: MapState, device) -> MapState:
+    """Every tensor of m copied to device (a copy also on its own)."""
+    return MapState(*(t.to(device, copy=True) for t in m))
+
+
+@contextmanager
+def _on_stream(stream):
+    """stream's card current and stream selected on it."""
+    with torch.cuda.device(stream.device), torch.cuda.stream(stream):
+        yield
 
 
 # the reference's StageProfiler names (object_slam_tpu/slam/system.py) of
@@ -300,8 +355,24 @@ class SlamSystem:
         self.mapping_stats = {"passes": 0, "abbreviated": 0,
                               "barrier_merges": 0, "ready_merges": 0,
                               "flush_merges": 0}
-        self._async = (_AsyncMapping(self._mapping_pass, self.device)
+        side = self._side_device() if async_mapping else None
+        # the scale tables the mapping pass reads, on each device a pass
+        # may run on (copied to the second card once, here)
+        self._pass_tables = {
+            d: (self.scale_factors.to(d), self.inv_sigma2.to(d))
+            for d in (self.scale_factors.device, side) if d is not None}
+        self._async = (_AsyncMapping(self._mapping_pass, self.device,
+                                     device=side)
                        if async_mapping else None)
+
+    def _side_device(self):
+        """The async mapping pass's device: a second card when there is
+        one (the reference's ``devs[1]``), else None (a side stream of the
+        tracker's card, or a thread on the CPU)."""
+        if self.device.type != "cuda" or torch.cuda.device_count() < 2:
+            return None
+        home = indexed(self.device).index
+        return torch.device("cuda", 1 if home != 1 else 0)
 
     def _eye(self):
         return torch.eye(4, dtype=torch.float32, device=self.device)
@@ -552,9 +623,9 @@ class SlamSystem:
         """The local-mapping pass on keyframe kf_id, on the full or the
         abbreviated BA schedule."""
         ba_iters = tuple(self.cfg.mapping.ba_abort_iters) if fast else None
+        sf, isg = self._pass_tables[m.pt_xyz.device]
         return local_mapping.process_new_keyframe(
-            self.K, m, kf_id, self.scale_factors, self.inv_sigma2, self.cfg,
-            ba_iters=ba_iters)
+            self.K, m, kf_id, sf, isg, self.cfg, ba_iters=ba_iters)
 
     def _merge_mapping(self, where: str):
         """Fold a pending async pass into the live map."""

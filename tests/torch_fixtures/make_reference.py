@@ -94,6 +94,20 @@ inputs and outputs are recorded here once and committed:
   with 4 pinned one-ulp noise runs), diag_fullpipe.py's 16 frames at
   small_cfg and tum_rgbd() (flags, poses, keyframes, the bytes line, the
   profiler's spans).
+* ``async_device.npz`` (``async_device[:<part>]``, parts under
+  build/async_device/, then ``async_device:merge``):
+  scripts/ab_async_device.py's sync and async runs through its loop
+  verbatim on an 8-device CPU mesh (the async pass on the second
+  device), ready() pinned to "a pass is pending", at 8, 16, 40 and 120
+  frames of its 320x240 circuit, each with 4 one-ulp noise runs
+  (pinned_noise: the keyframe decisions of the main run); at 120 frames
+  also 4 noise runs with their own keyframe decisions (ulp_noise alone:
+  ``async_device:120:free<k>``, then ``async_device:free_merge``, which
+  adds them to async_device.npz as <n>.<arm>.free<k>), the spread of the
+  decisions themselves;
+  ``scaling.npz`` (``scaling``): scripts/bench_ba_scaling.py's problem at
+  --kf 8 --pts 512 through make_sharded_ba (3 iterations) on a 4-device
+  CPU mesh at sizes 1, 2 and 4, with 4 one-ulp noise runs of each.
 
 Run from the repository root (the parts named; with no argument, the
 slices' parts listed in main()):
@@ -107,7 +121,7 @@ slices' parts listed in main()):
         [loop_small_noise[:noise<k>|:merge]] [experiments]
         [experiments_tiny] [xla_resize] [vocab] [vocab_counts] [brief]
         [harvest_cpu[:brief]] [studies[:<part>]] [probes[:<part>]]
-        [stages[:<part>]]
+        [stages[:<part>]] [async_device[:<part>]] [scaling]
 
 slice1, objects and tum_vga use ``pipelined_readback=False``. The rendered
 inputs' checksums are stored so that the tests can prove they re-render
@@ -122,7 +136,15 @@ import os
 import sys
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
-if "parallel" in sys.argv[1:] or len(sys.argv) == 1:
+if any(a.startswith("async_device") for a in sys.argv[1:]):
+    # the async arm's second device (ab_async_device.py's 8-device mesh)
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_"
+                               "force_host_platform_device_count=8").strip()
+elif any(a.startswith("scaling") for a in sys.argv[1:]):
+    # bench_ba_scaling.py's mesh sizes 1, 2 and 4
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_"
+                               "force_host_platform_device_count=4").strip()
+elif "parallel" in sys.argv[1:] or len(sys.argv) == 1:
     # the sharded run's 2-device mesh (before jax is imported)
     os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_"
                                "force_host_platform_device_count=2").strip()
@@ -5062,6 +5084,268 @@ def record_stages(part):
           f"{len(out)} arrays", flush=True)
 
 
+OUT_ASYNC_DEVICE = os.path.join(HERE, "async_device.npz")
+ASYNC_DEVICE_DIR = os.path.join(HERE, "..", "..", "build", "async_device")
+# ab_async_device.py's defaults: scale 2, 120 frames, 1.15 turns, seed 3;
+# the depths recorded: the CPU tests', chip_smoke.py's two and the full
+# length (each the first frames of the 120-frame circuit)
+ASYNC_DEVICE_FRAMES, ASYNC_DEVICE_TURNS, ASYNC_DEVICE_SEED = 120, 1.15, 3
+ASYNC_DEVICE_DEPTHS = (8, 16, 40, 120)
+ASYNC_DEVICE_NOISE = 4
+ASYNC_DEVICE_ARMS = (("sync", False), ("async_dev1", True))
+
+
+def async_device_inputs(n):
+    """ab_async_device.py's scene and frames, its lines verbatim, cut to
+    the first n of the 120-frame circuit: (cfg, poses, rendered, sems)."""
+    from object_slam_tpu.datasets.synthetic import loop_trajectory
+    ab = load_script("ab_deviations")
+    cfg = ab.build_cfg(2)
+    scene = SyntheticScene.make(cfg, seed=ASYNC_DEVICE_SEED, n_objects=3,
+                                plane_z=4.0)
+    poses = loop_trajectory(ASYNC_DEVICE_FRAMES,
+                            sweep=2 * np.pi * ASYNC_DEVICE_TURNS)[:n]
+    rendered = [scene.render_rgbd(T) for T in poses]
+    sems = [scene.sem_arrays(s, cfg.semantic.max_instances)
+            for (_, _, _, s) in rendered]
+    return cfg, poses, rendered, sems
+
+
+def run_async_device(cfg, poses, rendered, sems, async_mapping,
+                     noise=None):
+    """One arm of ab_async_device.py: its run() loop verbatim, with
+    ready() pinned to "a pass is pending" (the reference's ready() merges
+    on the staged path when the device is done, which is timing), the
+    dispatches and merges counted (AsyncRecorder) and, with noise (seed,
+    pin_frames), one-ulp noise in every mapping pass's input and the
+    keyframe decisions of pin_frames (pinned_noise; pin_frames None: the
+    noise alone, ulp_noise). Returns the script's dict and what the port
+    is held to."""
+    import time
+    from object_slam_tpu.slam import system as jsys
+    ready = jsys._AsyncMapping.ready
+    jsys._AsyncMapping.ready = lambda self: self.pending is not None
+    try:
+        sys_ = SlamSystem(cfg, enable_objects=True,
+                          async_mapping=async_mapping)
+        if noise is not None and noise[1] is None:
+            ulp_noise(sys_, noise[0])
+        elif noise is not None:
+            pinned_noise(sys_, *noise)
+        arec = AsyncRecorder(sys_)
+        inserts = []
+        jit_insert = sys_._jit_insert
+
+        def insert(m, frame, Tcw, kp_pt, spawn, fid):
+            inserts.append(int(fid))
+            return jit_insert(m, frame, Tcw, kp_pt, spawn, fid)
+        sys_._jit_insert = insert
+        lags, lag_at = [], []
+        dispatch_frame, last_pending_kf = -1, -1
+        t0 = time.perf_counter()
+        times = []
+        for i, (T, (gray, depth, rgb, _)) in enumerate(zip(poses,
+                                                           rendered)):
+            tf0 = time.perf_counter()
+            sys_.track_rgbd(gray, depth, rgb, sems[i], timestamp=i / 30.0)
+            times.append(time.perf_counter() - tf0)
+            lag = -1
+            if sys_._async is not None and sys_._async.pending is not None:
+                if sys_._async.pending_kf != last_pending_kf:
+                    dispatch_frame, last_pending_kf = (
+                        i, sys_._async.pending_kf)
+                lags.append(i - dispatch_frame)
+                lag = i - dispatch_frame
+            lag_at.append(lag)
+        total = time.perf_counter() - t0
+        sys_.flush_mapping()
+    finally:
+        jsys._AsyncMapping.ready = ready
+    errs = []
+    for rec, T in zip(sys_.trajectory, poses):
+        if rec.tracked:
+            errs.append(np.linalg.norm(rec.Tcw[:3, 3] - T[:3, 3]))
+    dev = ("dev1" if (sys_._async is not None
+                      and sys_._async.device is not None) else "dev0")
+    res = {
+        "async": async_mapping, "mapping_device": dev,
+        "fps": len(poses) / total,
+        "median_frame_ms": float(np.median(times) * 1e3),
+        "ate_rmse_mm": float(np.sqrt(np.mean(np.square(errs))) * 1e3),
+        "keyframes": sys_.n_keyframes,
+        "tracked": sum(1 for r in sys_.trajectory if r.tracked),
+        "frames_with_pending_pass": len(lags),
+        "merge_lag_frames_max": int(max(lags)) if lags else 0,
+        "merge_lag_frames_median": float(np.median(lags)) if lags else 0.0,
+    }
+    m = sys_.map
+    kf_valid = np.asarray(m.kf_valid)
+    return {
+        "result": np.asarray(json.dumps(res)),
+        "tracked": np.asarray([r.tracked for r in sys_.trajectory]),
+        "rec_tcw": np.stack([r.Tcw for r in sys_.trajectory]).astype(
+            np.float32),
+        "inserts": np.asarray(inserts, np.int32),
+        "kf_frames": np.asarray(m.kf_frame_id)[kf_valid].astype(np.int32),
+        "n_points": np.int32(int(np.sum(np.asarray(m.pt_valid)))),
+        "dispatches": np.int32(arec.dispatches),
+        "fast_dispatches": np.int32(arec.fast),
+        "merges": np.int32(arec.merges),
+        "lag": np.asarray(lag_at, np.int32),
+    }
+
+
+def async_device_path(part):
+    os.makedirs(ASYNC_DEVICE_DIR, exist_ok=True)
+    return os.path.join(ASYNC_DEVICE_DIR, part.replace(":", "_") + ".npz")
+
+
+ASYNC_DEVICE_PARTS = ([f"{n}:main" for n in ASYNC_DEVICE_DEPTHS]
+                      + [f"{n}:noise{k}" for n in ASYNC_DEVICE_DEPTHS
+                         for k in range(ASYNC_DEVICE_NOISE)])
+
+
+def record_async_device(part):
+    """async_device:<n>:<run> (run main, or noise<k> after the depth's
+    main, or free<k>: the noise with the run's own decisions): both arms
+    at depth n, saved under build/async_device/; async_device:merge
+    collects the main and noise runs into async_device.npz under
+    <n>.<arm>.<run>, async_device:free_merge adds the free runs found."""
+    import glob
+    import time
+    if part == "free_merge":
+        with np.load(OUT_ASYNC_DEVICE) as d:
+            out = {k: d[k] for k in d.files}
+        for path in sorted(glob.glob(os.path.join(ASYNC_DEVICE_DIR,
+                                                  "*_free*.npz"))):
+            n, run = os.path.basename(path)[:-4].split("_")
+            with np.load(path) as d:
+                out.update({f"{n}.{k.split('.', 1)[0]}.{run}."
+                            f"{k.split('.', 1)[1]}": d[k]
+                            for k in d.files if "." in k})
+        np.savez_compressed(OUT_ASYNC_DEVICE, **out)
+        print(f"wrote {OUT_ASYNC_DEVICE}: "
+              f"{os.path.getsize(OUT_ASYNC_DEVICE) / 1e3:.1f} kB, "
+              f"{len(out)} arrays", flush=True)
+        return
+    if part != "merge":
+        n, run = part.split(":")
+        n = int(n)
+        assert len(jax.devices()) == 8, "run with the 8-device mesh"
+        cfg, poses, rendered, sems = async_device_inputs(n)
+        out = {"gray_sum": np.asarray([np.sum(g, dtype=np.float64)
+                                       for g, _, _, _ in rendered]),
+               "n_devices": np.int32(len(jax.devices()))}
+        main = None
+        if run.startswith("noise"):
+            with np.load(async_device_path(f"{n}:main")) as d:
+                main = {k: d[k] for k in d.files}
+        for arm, flag in ASYNC_DEVICE_ARMS:
+            noise = None
+            if run.startswith("free"):
+                noise = (1000 * n + 500 + int(run[len("free"):])
+                         + 17 * flag, None)
+            elif main is not None:
+                noise = (1000 * n + int(run[len("noise"):]) + 17 * flag,
+                         main[f"{arm}.inserts"])
+            t0 = time.perf_counter()
+            rec = run_async_device(cfg, poses, rendered, sems, flag, noise)
+            print(f"async_device {part} {arm}: {rec['result']} "
+                  f"inserts {rec['inserts'].tolist()} dispatches "
+                  f"{int(rec['dispatches'])} merges {int(rec['merges'])} "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+            out.update({f"{arm}.{k}": v for k, v in rec.items()})
+        np.savez_compressed(async_device_path(part), **out)
+        return
+    out = {}
+    for p in ASYNC_DEVICE_PARTS:
+        n, run = p.split(":")
+        with np.load(async_device_path(p)) as d:
+            for k in d.files:
+                if k in ("gray_sum", "n_devices"):
+                    if run == "main":
+                        out[f"{n}.{k}"] = d[k]
+                    continue
+                arm, key = k.split(".", 1)
+                out[f"{n}.{arm}.{run}.{key}"] = d[k]
+    np.savez_compressed(OUT_ASYNC_DEVICE, **out)
+    print(f"wrote {OUT_ASYNC_DEVICE}: "
+          f"{os.path.getsize(OUT_ASYNC_DEVICE) / 1e3:.1f} kB, {len(out)} "
+          f"arrays", flush=True)
+
+
+OUT_SCALING = os.path.join(HERE, "scaling.npz")
+# bench_ba_scaling.py at a small size: --kf 8 --pts 512 --iters 3
+SCALING_SIZE = (8, 512, 3)
+SCALING_MESH = (1, 2, 4)
+SCALING_NOISE = 4
+
+
+def scaling_problem(n_kf, n_pt):
+    """bench_ba_scaling.py's problem, its lines verbatim."""
+    from object_slam_tpu.geometry import se3, camera as cam_mod
+    K = cam_mod.Intrinsics.from_config(SlamConfig().camera)
+    rng = np.random.RandomState(0)
+    pts = jnp.asarray(rng.uniform(-3, 3, (n_pt, 3)).astype(np.float32)
+                      + np.array([0, 0, 6], np.float32))
+    poses = jnp.stack([se3.exp(jnp.asarray(
+        rng.normal(0, 0.1, 6).astype(np.float32))) for _ in range(n_kf)])
+    obs_kf = jnp.asarray(np.repeat(np.arange(n_kf), n_pt // 4))
+    obs_pt = jnp.asarray(rng.randint(0, n_pt, obs_kf.shape[0]))
+    pc = jnp.einsum('oij,oj->oi', poses[obs_kf, :3, :3], pts[obs_pt]) \
+        + poses[obs_kf, :3, 3]
+    z = jnp.maximum(pc[:, 2], 1e-3)
+    uv = jnp.stack([K.fx * pc[:, 0] / z + K.cx,
+                    K.fy * pc[:, 1] / z + K.cy], -1)
+    prob = BAProblem(
+        kf_pose=poses, kf_fixed=jnp.zeros(n_kf, bool).at[0].set(True),
+        kf_valid=jnp.ones(n_kf, bool),
+        pt_xyz=pts + 0.01, pt_valid=jnp.ones(n_pt, bool),
+        obs_kf=obs_kf, obs_pt=obs_pt, obs_uv=uv,
+        obs_ur=uv[:, 0] - K.bf / z,
+        obs_inv_sigma2=jnp.ones(obs_kf.shape[0]),
+        obs_valid=z > 0.1)
+    return K, prob
+
+
+def record_scaling():
+    """bench_ba_scaling.py's problem at SCALING_SIZE through
+    make_sharded_ba at each mesh size of SCALING_MESH, and SCALING_NOISE
+    runs of each with the initial points scaled by (1 + u), |u| <= 6e-8
+    (at most one float32 ulp)."""
+    from jax.sharding import Mesh
+    from object_slam_tpu.parallel.sharded_ba import make_sharded_ba, \
+        pad_obs_to
+    n_kf, n_pt, iters = SCALING_SIZE
+    devices = jax.devices()
+    assert len(devices) >= max(SCALING_MESH), "run with the 4-device mesh"
+    K, prob = scaling_problem(n_kf, n_pt)
+    out = {f"prob.{f}": np.asarray(getattr(prob, f))
+           for f in BAProblem._fields}
+    out["size"] = np.asarray(SCALING_SIZE, np.int32)
+    for nd in SCALING_MESH:
+        mesh = Mesh(np.asarray(devices[:nd]).reshape(-1), ('ba',))
+        fn = make_sharded_ba(K, mesh, n_iters=iters)
+        runs = [("main", prob)]
+        for k in range(SCALING_NOISE):
+            u = np.random.RandomState(100 + k).uniform(-6e-8, 6e-8,
+                                                       (n_pt, 3))
+            xyz = (np.asarray(prob.pt_xyz) * (1.0 + u)).astype(np.float32)
+            runs.append((f"noise{k}", prob._replace(pt_xyz=jnp.asarray(xyz))))
+        for run, p in runs:
+            kf, pt = fn(pad_obs_to(p, nd))
+            out[f"mesh{nd}.{run}.kf_pose"] = np.asarray(kf)
+            out[f"mesh{nd}.{run}.pt_xyz"] = np.asarray(pt)
+        d_kf = max(float(np.abs(out[f"mesh{nd}.noise{k}.kf_pose"]
+                                - out[f"mesh{nd}.main.kf_pose"]).max())
+                   for k in range(SCALING_NOISE))
+        print(f"scaling: mesh {nd}: noise spread of the poses {d_kf:.3g}",
+              flush=True)
+    np.savez_compressed(OUT_SCALING, **out)
+    print(f"wrote {OUT_SCALING}: {os.path.getsize(OUT_SCALING) / 1e3:.1f} "
+          f"kB", flush=True)
+
+
 def main():
     parts = sys.argv[1:] or ["slice1", "objects", "tum_vga", "pipelined",
                              "kidnap", "pipelined_tum_vga", "kidnap_tum_vga",
@@ -5198,6 +5482,16 @@ def main():
                 record_loop_small_noise(part)
         elif p.startswith("loop_small_noise:"):
             record_loop_small_noise(p.split(":", 1)[1])
+    for p in parts:
+        # async_device: every part in turn, then merge;
+        # async_device:<depth>:<run> or async_device:merge one of them
+        if p == "async_device":
+            for part in ASYNC_DEVICE_PARTS + ["merge"]:
+                record_async_device(part)
+        elif p.startswith("async_device:"):
+            record_async_device(p.split(":", 1)[1])
+    if "scaling" in parts:
+        record_scaling()
 
 
 if __name__ == "__main__":
